@@ -1,0 +1,364 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Builds the four hand-written CUDA kernels of orb_slam2_comment_tpu_torch,
+checks each against its plain PyTorch version on the card at the shapes of
+the RGB-D main path, then drives the main path — System.track_rgbd over a
+bench-shaped synthetic sequence (bench.py's config, scene and trajectory) —
+and checks that every frame tracks, keyframes and local BA happen, every
+kernel ran, a rerun is bit-identical and the trajectory error is small.
+
+    python3 chip_smoke.py [--frames N] [--profile FILE]
+
+Run from the repository root. Exits nonzero on any failure and when no
+CUDA device is present. The last stdout line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+import warnings
+
+import numpy as np
+import torch
+
+KERNEL_ROWS = [
+    # name, source, replaced Pallas call site
+    ("fast_nms", "orb_slam2_comment_tpu_torch/csrc/fast_nms.cu",
+     "orb_slam2_comment_tpu/ops/orb.py:302"),
+    ("gather_patches", "orb_slam2_comment_tpu_torch/csrc/gather_patches.cu",
+     "orb_slam2_comment_tpu/ops/orb.py:727"),
+    ("pose_lm", "orb_slam2_comment_tpu_torch/csrc/pose_lm.cu",
+     "orb_slam2_comment_tpu/ops/lm_pallas.py:301"),
+    ("lba_build", "orb_slam2_comment_tpu_torch/csrc/lba_build.cu",
+     "orb_slam2_comment_tpu/ops/lba_pallas.py:260"),
+]
+
+
+def cuda_ms(fn, reps=30, warm=3):
+    """Median CUDA-event time of one call, in ms."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return float(np.median(times))
+
+
+def bench_config():
+    from orb_slam2_comment_tpu_torch.utils import synthetic as syn
+    from orb_slam2_comment_tpu_torch.utils.config import SlamConfig
+
+    K = syn.DEFAULT_K
+    return SlamConfig(
+        sensor="rgbd", fx=K[0], fy=K[1], cx=K[2], cy=K[3],
+        bf=K[0] * syn.DEFAULT_BASELINE, n_features=1000, n_levels=8,
+        max_keyframes=128, max_points=32768, grow_capacity=False,
+        match_th_scale=1.5, depth_map_factor=1000.0,
+    )
+
+
+def render_frames(n_frames):
+    """bench.py's scene and forward trajectory, in sensor dtypes (uint8
+    gray, uint16 depth in mm)."""
+    from orb_slam2_comment_tpu_torch.utils import synthetic as syn
+
+    scene = syn.make_scene(n_points=3200, seed=0, extent=(8.0, 5.0, 8.0), z_near=1.0)
+    poses = syn.make_trajectory("forward", n_frames=n_frames, step=0.025)
+    frames = []
+    for f in syn.render_sequence(scene, poses, K=syn.DEFAULT_K, depth=True):
+        f["image"] = np.clip(f["image"], 0, 255).astype(np.uint8)
+        f["depth"] = np.clip(f["depth"] * 1000.0, 0, 65535).astype(np.uint16)
+        frames.append(f)
+    return frames
+
+
+# ---------------------------------------------------------------------------
+# kernel vs plain, at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def check_k1_k2(cfg, frame, dev):
+    from orb_slam2_comment_tpu_torch.ops import orb
+
+    ocfg = cfg.orb
+    h, w = cfg.height, cfg.width
+    img = torch.from_numpy(frame["image"]).to(dev).float()
+    sizes = ocfg.level_sizes(h, w)
+    pyr = [img]
+    for lvl in range(1, ocfg.n_levels):
+        pyr.append(orb._resize_level(pyr[-1], sizes[lvl]).contiguous())
+    err1 = 0.0
+    scores = []
+    for lv in pyr:
+        a, b = orb.fast_nms(lv), orb.fast_nms_plain(lv)
+        if not torch.equal(a, b):
+            raise AssertionError(f"K1 differs at level {tuple(lv.shape)}: "
+                                 f"{(a != b).sum().item()} pixels")
+        err1 = max(err1, (a - b).abs().max().item())
+        scores.append(a)
+    k1 = dict(max_abs_err=err1,
+              ms=cuda_ms(lambda: [orb.fast_nms(lv) for lv in pyr]),
+              plain_ms=cuda_ms(lambda: [orb.fast_nms_plain(lv) for lv in pyr], reps=10))
+    budgets = ocfg.level_budgets()
+    xy_all = torch.cat([orb._select_keypoints(s, budgets[i], ocfg.cell, ocfg.min_th)[0]
+                        for i, s in enumerate(scores)])
+    padded, lyx = orb._patch_inputs(pyr, xy_all, ocfg, (h, w))
+    a, b = orb.gather_patches(padded, lyx), orb.gather_patches_plain(padded, lyx)
+    if not torch.equal(a, b):
+        raise AssertionError("K2 differs from its plain version")
+    k2 = dict(max_abs_err=(a - b).abs().max().item(),
+              ms=cuda_ms(lambda: orb.gather_patches(padded, lyx)),
+              plain_ms=cuda_ms(lambda: orb.gather_patches_plain(padded, lyx)))
+    print(f"# K1 fast_nms: 8 levels bit-exact; {k1['ms']:.4f} ms/frame "
+          f"(plain {k1['plain_ms']:.4f}); K2 gather_patches: {lyx.shape[0]} patches "
+          f"bit-exact; {k2['ms']:.4f} ms (plain {k2['plain_ms']:.4f})", flush=True)
+    return k1, k2
+
+
+def check_k3(cfg, dev):
+    from orb_slam2_comment_tpu_torch.ops import lm_cuda
+
+    r = np.random.default_rng(0)
+    N = sum(cfg.orb.level_budgets())
+    K, bf = cfg.K, cfg.bf
+    Xw = (r.uniform([-3, -2, 2.0], [3, 2, 8.0], size=(N, 3))).astype(np.float32)
+    T_gt = np.eye(4, dtype=np.float32)
+    T_gt[:3, 3] = [0.1, -0.05, 0.2]
+    Xc = Xw @ T_gt[:3, :3].T + T_gt[:3, 3]
+    u = K[0] * Xc[:, 0] / Xc[:, 2] + K[2]
+    v = K[1] * Xc[:, 1] / Xc[:, 2] + K[3]
+    obs = np.stack([u, v, u - bf / Xc[:, 2]], -1).astype(np.float32)
+    obs[:, :2] += r.normal(0, 0.5, (N, 2)).astype(np.float32)
+    out_idx = r.choice(N, N // 20, replace=False)
+    obs[out_idx, :2] += r.normal(0, 40.0, (len(out_idx), 2)).astype(np.float32)
+    T0 = np.eye(4, dtype=np.float32)
+    T0[:3, 3] = [0.05, 0.0, 0.1]
+    args = [torch.from_numpy(a).to(dev) for a in (
+        T0, Xw, obs, r.integers(0, 8, N).astype(np.int32), r.random(N) > 0.5,
+        r.random(N) < 0.9, (1.0 / 1.44 ** np.arange(8)).astype(np.float32))]
+    ker = lm_cuda.pose_optimize_lm(*args, K, bf)
+    pl = lm_cuda.pose_optimize_plain(*args, K, bf)
+    dT = (ker.Tcw - pl.Tcw).abs().max().item()
+    dn = abs(int(ker.n_inliers) - int(pl.n_inliers))
+    if not (dT < 5e-3 and dn <= 5):
+        raise AssertionError(f"K3 disagrees: |dT|={dT} |dinl|={dn}")
+    gt_err = (ker.Tcw - torch.from_numpy(T_gt).to(dev)).abs().max().item()
+    res = dict(max_abs_err=dT,
+               ms=cuda_ms(lambda: lm_cuda.pose_optimize_lm(*args, K, bf)),
+               plain_ms=cuda_ms(lambda: lm_cuda.pose_optimize_plain(*args, K, bf), reps=10))
+    print(f"# K3 pose_lm: N={N} |dT|={dT:.2e} |dinl|={dn} (inliers {int(ker.n_inliers)}, "
+          f"pose vs truth {gt_err:.2e}); {res['ms']:.4f} ms (plain {res['plain_ms']:.4f})",
+          flush=True)
+    return res
+
+
+def check_k4(dev):
+    from orb_slam2_comment_tpu_torch.ops import geometry as geo, lba_cuda, optim
+
+    NC, NP, N_PER, F = 32, 2048, 1000, 16
+    O = NC * N_PER
+    K = (500.0, 500.0, 320.0, 240.0)
+    BF = 50.0
+    inv_s2 = torch.tensor([1.0 / (1.2 ** (2 * l)) for l in range(8)], dtype=torch.float32)
+    r = np.random.default_rng(0)
+    pts = r.uniform(-6, 6, (NP, 3)).astype(np.float32) + np.float32([0, 0, 10])
+    cam_T = np.tile(np.eye(4, dtype=np.float32), (NC, 1, 1))
+    cam_T[:, 0, 3] = -np.linspace(0, 2, NC).astype(np.float32)
+    obs_pt = r.integers(0, NP, (NC, N_PER)).astype(np.int32)
+    uvr = geo.project_stereo(K, BF, geo.transform_points(
+        torch.from_numpy(cam_T)[:, None], torch.from_numpy(pts[obs_pt]))).numpy()
+    uvr = uvr.reshape(O, 3) + r.normal(0, 0.4, (O, 3)).astype(np.float32)
+    cam_fixed = np.zeros(NC, bool)
+    cam_fixed[F:] = True
+    cam_fixed[3] = True
+    fields = dict(
+        cam_T=cam_T, cam_fixed=cam_fixed, cam_valid=np.ones(NC, bool), pts=pts,
+        pt_valid=np.ones(NP, bool), obs_cam=np.repeat(np.arange(NC, dtype=np.int32), N_PER),
+        obs_pt=obs_pt.reshape(-1), obs_uvr=uvr.astype(np.float32),
+        obs_oct=r.integers(0, 4, O).astype(np.int32), obs_stereo=r.random(O) < 0.7,
+        obs_valid=r.random(O) < 0.95)
+    prob = optim.BAProblem(**{k: torch.from_numpy(v).to(dev) for k, v in fields.items()})
+    prob_cpu = optim.BAProblem(**{k: torch.from_numpy(v) for k, v in fields.items()})
+    inv_dev = inv_s2.to(dev)
+    prep = lba_cuda.prep_problem(prob, inv_dev, F)
+    worst = 0.0
+    for robust in (True, False):
+        sk = lba_cuda.build_system(prep, prob.cam_T, prob.pts, prob.obs_valid, robust, K, BF)
+        sp = optim.build_system_plain(prob, inv_dev, F, prob.cam_T, prob.pts,
+                                      prob.obs_valid, robust, K, BF)
+        for fld in sp._fields:
+            a = getattr(sp, fld).double()
+            b = getattr(sk, fld).double()
+            err = ((a - b).abs().max() / max(a.abs().max().item(), 1e-6)).item()
+            worst = max(worst, err)
+            if not err < 1e-3:
+                raise AssertionError(f"K4 field {fld} (robust={robust}) rel err {err}")
+    # five LM iterations: kernel path on the card vs the plain path (CPU)
+    ck = optim.lba_iterate(prob, inv_dev, optim.lba_init(prob, inv_dev, K, BF), K, BF, 5,
+                           robust=True, n_free=F)
+    cp = optim.lba_iterate(prob_cpu, inv_s2, optim.lba_init(prob_cpu, inv_s2, K, BF), K, BF, 5,
+                           robust=True, n_free=F)
+    c_k, c_p = float(ck[3]), float(cp[3])
+    if not (abs(c_k - c_p) / max(abs(c_p), 1.0) < 1e-3 and int(ck[4]) == int(cp[4])):
+        raise AssertionError(f"K4 lba_iterate(5): cost {c_k} vs {c_p}, "
+                             f"inliers {int(ck[4])} vs {int(cp[4])}")
+    res = dict(
+        max_abs_err=worst,
+        ms=cuda_ms(lambda: lba_cuda.build_system(prep, prob.cam_T, prob.pts, prob.obs_valid,
+                                                 True, K, BF)),
+        plain_ms=cuda_ms(lambda: optim.build_system_plain(prob, inv_dev, F, prob.cam_T,
+                                                          prob.pts, prob.obs_valid, True, K,
+                                                          BF), reps=10))
+    print(f"# K4 lba_build: {NC} cams x {NP} pts x {O} obs; worst field rel err "
+          f"{worst:.2e}; lba_iterate(5) cost {c_k:.6g} vs plain {c_p:.6g}, inliers "
+          f"{int(ck[4])}; {res['ms']:.4f} ms (plain {res['plain_ms']:.4f})", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the main path
+# ---------------------------------------------------------------------------
+
+def run_sequence(cfg, frames, count_syncs_from=None, profile=None):
+    """System.track_rgbd over the frames. Returns (system, per-frame
+    records, per-frame seconds, phases run, host syncs per counted frame)."""
+    from orb_slam2_comment_tpu_torch.models import local_mapping as lm
+    from orb_slam2_comment_tpu_torch.models.system import System
+
+    phases = lm._phase_list(cfg)
+    system = System(cfg, enable_loop_closing=False)
+    recs, secs, ran, syncs = [], [], set(), []
+    for i, f in enumerate(frames):
+        ds = system.tracker.ds
+        p_before = ds.mp.phase if ds is not None else 0
+        counting = count_syncs_from is not None and i >= count_syncs_from
+        prof_on = profile is not None and i == len(frames) - 20
+        if prof_on:
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                      torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        with warnings.catch_warnings(record=True) as caught:
+            if counting:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode(1)
+            t0 = time.perf_counter()
+            out = system.track_rgbd(f["image"], f["depth"], f["timestamp"])
+            secs.append(time.perf_counter() - t0)
+            if counting:
+                torch.cuda.set_sync_debug_mode(0)
+                syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        if out.state != 1:
+            raise AssertionError(f"frame {i}: tracking state {out.state}")
+        recs.append((out.Tcw, out.n_inliers, out.created_kf))
+        if out.created_kf and i > 0:
+            ran.add(phases[0][0])
+        elif p_before > 0:
+            ran.add(phases[p_before - 1][0])
+    if profile is not None:
+        prof.__exit__(None, None, None)
+        with open(profile, "w") as fh:
+            fh.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+    return system, recs, secs, ran, syncs
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=120)
+    ap.add_argument("--profile", default=None, help="write a torch.profiler table here")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel-vs-plain checks")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    # the port first: without the repository around it, fail before printing
+    from orb_slam2_comment_tpu_torch import _build
+    from orb_slam2_comment_tpu_torch.ops import lba_cuda, lm_cuda, orb
+    from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    print(f"# device {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"# kernels built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    cfg = bench_config()
+    t0 = time.perf_counter()
+    frames = render_frames(args.frames)
+    print(f"# rendered {len(frames)} frames in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    k1, k2 = check_k1_k2(cfg, frames[0], dev)
+    k3 = check_k3(cfg, dev)
+    k4 = check_k4(dev)
+    torch.cuda.synchronize()
+    if args.kernels_only:
+        return 0
+
+    wrappers = [orb.fast_nms, orb.gather_patches, lm_cuda.pose_optimize_lm,
+                lba_cuda.build_system]
+    for wfn in wrappers:
+        wfn.launches = 0
+    system, recs, secs, ran, _ = run_sequence(cfg, frames, profile=args.profile)
+    torch.cuda.synchronize()
+    launches = [wfn.launches for wfn in wrappers]
+    if min(launches) <= 0:
+        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    n_kfs = system.tracker.n_kfs
+    if n_kfs < 3:
+        raise AssertionError(f"only {n_kfs} keyframes")
+    if not {"ba1", "ba2", "ba3"} <= ran:
+        raise AssertionError(f"mapper phases run: {sorted(ran)}")
+    poses = [np.asarray(r[0], np.float64) for r in recs]
+    gt = [f["Tcw_gt"] for f in frames]
+    ate = ate_rmse(poses, gt)
+    if not np.all(np.isfinite(np.stack(poses))) or not ate < 0.02:
+        raise AssertionError(f"ATE {ate} m")
+
+    n_rerun = min(40, len(frames))
+    _, recs2, _, _, syncs = run_sequence(cfg, frames[:n_rerun], count_syncs_from=10)
+    for i in range(n_rerun):
+        if not np.array_equal(recs[i][0], recs2[i][0]):
+            raise AssertionError(f"rerun differs at frame {i}")
+
+    n_warm = 8
+    dt = np.asarray(secs[n_warm:]) * 1e3
+    main = dict(frames=len(frames), timed=len(dt), fps=len(dt) / (dt.sum() / 1e3),
+                p50_ms=float(np.percentile(dt, 50)), p90_ms=float(np.percentile(dt, 90)),
+                p99_ms=float(np.percentile(dt, 99)), max_ms=float(dt.max()),
+                n_kfs=n_kfs, ate_m=ate, kf_frames=int(sum(r[2] for r in recs)),
+                mapper_phases=sorted(ran), rerun_identical_frames=n_rerun,
+                host_syncs_per_frame_median=float(np.median(syncs)) if syncs else None,
+                host_syncs_per_frame_max=int(max(syncs)) if syncs else None,
+                inliers_median=float(np.median([r[1] for r in recs[1:]])))
+    print("# main_path " + json.dumps(main), flush=True)
+
+    rows = []
+    for (name, src, rep), res, n in zip(KERNEL_ROWS, (k1, k2, k3, k4), launches):
+        rows.append(dict(name=name, route="cuda", source=src, replaces=rep, launches=n,
+                         max_abs_err=res["max_abs_err"], ms=res["ms"],
+                         plain_ms=res["plain_ms"]))
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,439 @@
+"""Levenberg-Marquardt solvers of the RGB-D main path — the port of the
+pose-only LM and the chunked local BA of `orb_slam2_comment_tpu/ops/optim.py`.
+
+- `pose_optimize`: motion-only BA (Optimizer::PoseOptimization). The plain
+  version `pose_optimize_plain` is the reference's XLA branch; CUDA
+  tensors go to kernel K3 (`ops/lm_cuda.py`).
+- Local BA (`lba_init`, `lba_iterate`, `lba_prune`, `lba_finalize`) over a
+  camera-major `BAProblem`, with a Schur complement on the points. One
+  linearization is `build_system_plain` (the reference's cam-major
+  build_system_xla) or, for CUDA tensors, kernel K4 (`ops/lba_cuda.py`).
+
+`lax.fori_loop` / `while_loop` / `cond` become Python loops and `if`s; the
+local-BA loop reads one or two scalars per iteration on the host.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from orb_slam2_comment_tpu_torch import constants as C
+from orb_slam2_comment_tpu_torch.ops import geometry as geo
+
+
+def _residual_unified(Tcw, Xw, obs, K, bf):
+    """(u, v, ur) residual and camera-frame depth; Tcw broadcasts."""
+    Xc = geo.transform_points(Tcw, Xw)
+    pred = geo.project_stereo(K, bf, Xc)
+    return obs - pred, Xc[..., 2]
+
+
+def _edge_jacobians(Tcw, Xw, obs, K, bf):
+    """Residual + analytic Jacobians wrt the camera tangent (6, [rho, phi])
+    and the point (3); Tcw [..., 4, 4] broadcasts against Xw [..., 3]."""
+    fx, fy, cx, cy = K
+    Xc = geo.transform_points(Tcw, Xw)
+    pred = geo.project_stereo(K, bf, Xc)
+    r = obs - pred
+    x, y, z = Xc[..., 0], Xc[..., 1], Xc[..., 2]
+    invz = 1.0 / torch.clamp(z, min=1e-9)
+    invz2 = invz * invz
+    zr = torch.zeros_like(x)
+    D00 = -fx * invz
+    D02 = fx * x * invz2
+    D11 = -fy * invz
+    D12 = fy * y * invz2
+    D20 = -fx * invz
+    D22 = (fx * x - bf) * invz2
+    M00 = -D02 * y
+    M01 = -D00 * z + D02 * x
+    M02 = D00 * y
+    M10 = D11 * z - D12 * y
+    M11 = D12 * x
+    M12 = -D11 * x
+    M20 = -D22 * y
+    M21 = -D20 * z + D22 * x
+    M22 = D20 * y
+    Jc = torch.stack([
+        torch.stack([D00, zr, D02, -M00, -M01, -M02], dim=-1),
+        torch.stack([zr, D11, D12, -M10, -M11, -M12], dim=-1),
+        torch.stack([D20, zr, D22, -M20, -M21, -M22], dim=-1),
+    ], dim=-2)
+    R = Tcw[..., :3, :3]
+    R0, R1, R2 = R[..., 0, :], R[..., 1, :], R[..., 2, :]
+    Jp = torch.stack([
+        D00[..., None] * R0 + D02[..., None] * R2,
+        D11[..., None] * R1 + D12[..., None] * R2,
+        D20[..., None] * R0 + D22[..., None] * R2,
+    ], dim=-2)
+    return r, Jc, Jp, z
+
+
+def _edge_weights(octave, is_stereo, valid, inv_sigma2_levels):
+    """Per-edge information scale (0 where invalid) and component mask."""
+    lvl = torch.clamp(octave, 0, inv_sigma2_levels.shape[0] - 1).long()
+    inv_s2 = inv_sigma2_levels[lvl]
+    comp = torch.stack(
+        [torch.ones_like(inv_s2), torch.ones_like(inv_s2), is_stereo.to(inv_s2.dtype)],
+        dim=-1)
+    return torch.where(valid, inv_s2, torch.zeros_like(inv_s2)), comp
+
+
+def _edge_chi2(r, inv_s2, comp):
+    return inv_s2 * torch.sum(comp * r * r, dim=-1)
+
+
+def _chi2_th(is_stereo):
+    return torch.where(is_stereo, C.CHI2_STEREO, C.CHI2_MONO).to(torch.float32)
+
+
+def _huber_delta(is_stereo):
+    return torch.where(is_stereo, C.HUBER_STEREO, C.HUBER_MONO).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# pose-only optimization
+# ---------------------------------------------------------------------------
+
+class PoseOptResult(NamedTuple):
+    Tcw: torch.Tensor
+    inliers: torch.Tensor    # [N] bool
+    n_inliers: torch.Tensor  # 0-d int
+
+
+def pose_optimize_plain(Tcw0, Xw, obs, octave, is_stereo, valid, inv_sigma2_levels,
+                        K, bf, rounds: int = C.POSE_OPT_ROUNDS,
+                        iters: int = C.POSE_OPT_ITS_PER_ROUND) -> PoseOptResult:
+    """Plain version of K3: the reference's XLA branch of pose_optimize —
+    4 rounds x 10 LM iterations, Huber in the first two, chi2
+    reclassification between rounds."""
+    chi2_th = _chi2_th(is_stereo)
+    delta = _huber_delta(is_stereo)
+    eye6 = torch.eye(6, dtype=torch.float32, device=Xw.device)
+
+    def robust_cost(r, inv_s2, comp, robust):
+        chi2 = _edge_chi2(r, inv_s2, comp)
+        if not robust:
+            return torch.sum(chi2)
+        d2 = delta * delta
+        rho = torch.where(chi2 <= d2, chi2,
+                          2.0 * delta * torch.sqrt(torch.clamp(chi2, min=1e-12)) - d2)
+        return torch.sum(rho)
+
+    def lm_round(T, inlier_mask, robust):
+        inv_s2, comp = _edge_weights(octave, is_stereo, valid & inlier_mask, inv_sigma2_levels)
+        r0, _ = _residual_unified(T, Xw, obs, K, bf)
+        cost = robust_cost(r0, inv_s2, comp, robust)
+        lam = torch.full((), 1e-3, dtype=torch.float32, device=Xw.device)
+        for _ in range(iters):
+            r, Jc, _, _ = _edge_jacobians(T, Xw, obs, K, bf)
+            chi2 = _edge_chi2(r, inv_s2, comp)
+            hw = geo.huber_weight(chi2, delta) if robust else torch.ones_like(chi2)
+            w = (inv_s2 * hw)[:, None] * comp
+            JcW = Jc * w[:, :, None]                 # weighted first: no 0*inf
+            H = torch.einsum("nki,nkj->ij", JcW, Jc)
+            b = -torch.einsum("nki,nk->i", JcW, r)
+            Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-9 * eye6
+            dx = torch.linalg.solve_ex(Hd, b)[0]
+            T_new = geo.se3_exp(dx) @ T
+            r_new, _ = _residual_unified(T_new, Xw, obs, K, bf)
+            new_cost = robust_cost(r_new, inv_s2, comp, robust)
+            accept = new_cost < cost
+            T = torch.where(accept, T_new, T)
+            lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-9),
+                              torch.clamp(lam * 4.0, max=1e6))
+            cost = torch.where(accept, new_cost, cost)
+        r, depth = _residual_unified(T, Xw, obs, K, bf)
+        inv_s2_all, comp_all = _edge_weights(octave, is_stereo, valid, inv_sigma2_levels)
+        chi2 = _edge_chi2(r, inv_s2_all, comp_all)
+        return T, (chi2 <= chi2_th) & (depth > 0) & valid
+
+    T = geo.orthonormalize_T(Tcw0)
+    mask = valid
+    for rd in range(rounds):
+        T, mask = lm_round(T, mask, robust=rd < C.POSE_OPT_ROBUST_ROUNDS)
+    return PoseOptResult(Tcw=geo.orthonormalize_T(T), inliers=mask,
+                         n_inliers=torch.sum(mask).to(torch.int32))
+
+
+def pose_optimize(Tcw0, Xw, obs, octave, is_stereo, valid, inv_sigma2_levels, K, bf,
+                  rounds: int = C.POSE_OPT_ROUNDS,
+                  iters: int = C.POSE_OPT_ITS_PER_ROUND) -> PoseOptResult:
+    """Motion-only BA: the plain version for CPU tensors, kernel K3 for
+    CUDA tensors."""
+    from orb_slam2_comment_tpu_torch.ops import lm_cuda
+
+    return lm_cuda.pose_optimize_lm(Tcw0, Xw, obs, octave, is_stereo, valid,
+                                    inv_sigma2_levels, K, bf, rounds=rounds, iters=iters)
+
+
+# ---------------------------------------------------------------------------
+# local bundle adjustment with a Schur complement on the points
+# ---------------------------------------------------------------------------
+
+class BAProblem(NamedTuple):
+    """Fixed-shape camera-major BA window; pad with valid=False."""
+
+    cam_T: torch.Tensor       # [Nc, 4, 4] world->cam
+    cam_fixed: torch.Tensor   # [Nc] bool
+    cam_valid: torch.Tensor   # [Nc] bool
+    pts: torch.Tensor         # [Np, 3]
+    pt_valid: torch.Tensor    # [Np] bool
+    obs_cam: torch.Tensor     # [O] int32 = repeat(arange(Nc), N_per)
+    obs_pt: torch.Tensor      # [O] int32 point index
+    obs_uvr: torch.Tensor     # [O, 3]
+    obs_oct: torch.Tensor     # [O] int32
+    obs_stereo: torch.Tensor  # [O] bool
+    obs_valid: torch.Tensor   # [O] bool
+
+
+class BAResult(NamedTuple):
+    cam_T: torch.Tensor
+    pts: torch.Tensor
+    obs_inlier: torch.Tensor  # [O] bool
+    cost: torch.Tensor
+
+
+class LBASystem(NamedTuple):
+    """One linearization of the window, point axis last."""
+
+    Hcc: torch.Tensor   # [F, 6, 6]
+    bc: torch.Tensor    # [F, 6]
+    Hpp9: torch.Tensor  # [9, Np]
+    bp3: torch.Tensor   # [3, Np]
+    E: torch.Tensor     # [F, 6, 3, Np]
+    cost: torch.Tensor  # 0-d robust cost at the linearization point
+    n_in: torch.Tensor  # 0-d int32 chi2-inlier count
+
+
+def _inv33(M):
+    """Closed-form batched 3x3 inverse with damping for empty blocks."""
+    M = M + 1e-8 * torch.eye(3, dtype=M.dtype, device=M.device)
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    Cc = d * h - e * g
+    det = a * A + b * B + c * Cc
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-20, torch.full_like(det, 1e-20), det)
+    adj = torch.stack([
+        torch.stack([A, -(b * i - c * h), (b * f - c * e)], dim=-1),
+        torch.stack([B, (a * i - c * g), -(a * f - c * d)], dim=-1),
+        torch.stack([Cc, -(a * h - b * g), (a * e - b * d)], dim=-1),
+    ], dim=-2)
+    return adj * inv_det[..., None, None]
+
+
+def _cost_from_chi2(prob: BAProblem, chi2, obs_ok, robust: bool):
+    delta = _huber_delta(prob.obs_stereo)
+    d2 = delta * delta
+    n_in = torch.sum(obs_ok & (chi2 <= _chi2_th(prob.obs_stereo))).to(torch.int32)
+    if not robust:
+        return torch.sum(chi2), n_in
+    rho = torch.where(chi2 <= d2, chi2,
+                      2.0 * delta * torch.sqrt(torch.clamp(chi2, min=1e-12)) - d2)
+    return torch.sum(rho), n_in
+
+
+def lba_cost(prob: BAProblem, inv_sigma2_levels, K, bf, cam_T, pts, obs_ok, robust: bool):
+    """(robust or plain cost, chi2-inlier count) of a window state."""
+    cam = prob.obs_cam.long()
+    r, _ = _residual_unified(cam_T[cam], pts[prob.obs_pt.long()], prob.obs_uvr, K, bf)
+    inv_s2, comp = _edge_weights(prob.obs_oct, prob.obs_stereo, obs_ok, inv_sigma2_levels)
+    return _cost_from_chi2(prob, _edge_chi2(r, inv_s2, comp), obs_ok, robust)
+
+
+def build_system_plain(prob: BAProblem, inv_sigma2_levels, F: int, cam_T, pts, obs_ok,
+                       robust: bool, K, bf) -> LBASystem:
+    """Plain version of K4: the reference's cam-major build_system_xla.
+    Camera blocks are reshape-sums over the regular camera axis; the
+    irregular point axis is an index_add (the reference's one-hot product),
+    which the CPU sums in a fixed order."""
+    Nc, Np = prob.cam_T.shape[0], prob.pts.shape[0]
+    O = prob.obs_cam.shape[0]
+    N_per = O // Nc
+    cam = prob.obs_cam.long()
+    ptl = prob.obs_pt.long()
+    r, Jc, Jp, _ = _edge_jacobians(cam_T[cam], pts[ptl], prob.obs_uvr, K, bf)
+    inv_s2, comp = _edge_weights(prob.obs_oct, prob.obs_stereo, obs_ok, inv_sigma2_levels)
+    chi2 = _edge_chi2(r, inv_s2, comp)
+    cost, n_in = _cost_from_chi2(prob, chi2, obs_ok, robust)
+    hw = geo.huber_weight(chi2, _huber_delta(prob.obs_stereo)) if robust \
+        else torch.ones_like(chi2)
+    cam_free = (~prob.cam_fixed) & prob.cam_valid
+    Jc = Jc * cam_free[cam].to(Jc.dtype)[:, None, None]
+    w = (inv_s2 * hw)[:, None] * comp
+    JcW = Jc * w[:, :, None]
+    JpW = Jp * w[:, :, None]
+    Hcc = torch.einsum("oki,okj->oij", JcW, Jc).reshape(Nc, N_per, 6, 6).sum(1)[:F]
+    bc = -torch.einsum("oki,ok->oi", JcW, r).reshape(Nc, N_per, 6).sum(1)[:F]
+    hpp_o = torch.einsum("oki,okj->oij", JpW, Jp).reshape(O, 9)
+    bp_o = -torch.einsum("oki,ok->oi", JpW, r)
+    e_o = torch.einsum("oki,okj->oij", JcW, Jp).reshape(O, 18)
+    dev, dt = cam_T.device, cam_T.dtype
+    Hpp9 = torch.zeros(Np, 9, dtype=dt, device=dev).index_add_(0, ptl, hpp_o).T
+    bp3 = torch.zeros(Np, 3, dtype=dt, device=dev).index_add_(0, ptl, bp_o).T
+    key = torch.where(cam < F, cam * Np + ptl, F * Np)
+    E = torch.zeros(F * Np + 1, 18, dtype=dt, device=dev).index_add_(0, key, e_o)[:F * Np]
+    E = E.reshape(F, Np, 6, 3).permute(0, 2, 3, 1).contiguous()
+    return LBASystem(Hcc=Hcc, bc=bc, Hpp9=Hpp9.contiguous(), bp3=bp3.contiguous(), E=E,
+                     cost=cost, n_in=n_in)
+
+
+def _lba_core(prob: BAProblem, inv_sigma2_levels, K, bf, cam_major: bool = True,
+              n_free=None):
+    """Local-BA LM machinery over one window: returns
+    (build_system, cost_of, iterate_da). n_free: count of leading camera
+    slots that may be free; the reduced camera system spans only them."""
+    if not cam_major:
+        raise NotImplementedError(
+            "the port's local BA supports the camera-major window layout only")
+    from orb_slam2_comment_tpu_torch.ops import lba_cuda
+
+    Nc, Np = prob.cam_T.shape[0], prob.pts.shape[0]
+    F = Nc if n_free is None else max(1, min(n_free, Nc))
+    cam_free_mask = (~prob.cam_fixed) & prob.cam_valid
+    prepped = lba_cuda.prep_problem(prob, inv_sigma2_levels, F)
+    dev = prob.cam_T.device
+
+    def build_system(cam_T, pts, obs_ok, robust) -> LBASystem:
+        return lba_cuda.build_system(prepped, cam_T, pts, obs_ok, robust, K, bf)
+
+    def cost_of(cam_T, pts, obs_ok, robust):
+        return lba_cost(prob, inv_sigma2_levels, K, bf, cam_T, pts, obs_ok, robust)
+
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    ci = torch.arange(F, device=dev)
+    emb_r = (ci[:, None, None] * 6 + torch.arange(6, device=dev)[None, :, None]).expand(F, 6, 6)
+    emb_c = (ci[:, None, None] * 6 + torch.arange(6, device=dev)[None, None, :]).expand(F, 6, 6)
+
+    def solve_from_system(sys_: LBASystem, lam, cam_T, pts):
+        """One damped Gauss-Newton step: Schur complement on the points,
+        dense Cholesky on the free-camera prefix, back-substitution."""
+        tr = torch.diagonal(sys_.Hcc, dim1=-2, dim2=-1).sum(-1)
+        Hcc_d = sys_.Hcc + lam * eye6 * torch.clamp(tr[:, None, None] / 6.0, min=1e-6)
+        cfree = cam_free_mask[:F]
+        Hcc_d = torch.where(cfree[:, None, None], Hcc_d, eye6)
+        bc = torch.where(cfree[:, None], sys_.bc, torch.zeros_like(sys_.bc))
+        h = sys_.Hpp9
+        dmp = lam * torch.clamp((h[0] + h[4] + h[8]) / 3.0, min=1e-6) + 1e-8
+        a, b_, c_ = h[0] + dmp, h[1], h[2]
+        d_, e_, f_ = h[3], h[4] + dmp, h[5]
+        g_, hh, i_ = h[6], h[7], h[8] + dmp
+        A = e_ * i_ - f_ * hh
+        B = -(d_ * i_ - f_ * g_)
+        Cc = d_ * hh - e_ * g_
+        det = a * A + b_ * B + c_ * Cc
+        inv_det = 1.0 / torch.where(torch.abs(det) < 1e-20, torch.full_like(det, 1e-20), det)
+        Hi = torch.stack([
+            torch.stack([A, -(b_ * i_ - c_ * hh), (b_ * f_ - c_ * e_)]),
+            torch.stack([B, (a * i_ - c_ * g_), -(a * f_ - c_ * d_)]),
+            torch.stack([Cc, -(a * hh - b_ * g_), (a * e_ - b_ * d_)]),
+        ]) * inv_det                                           # [3, 3, Np]
+        E = sys_.E                                             # [F, 6, 3, Np]
+        EH = torch.stack([
+            sum(E[:, :, j, :] * Hi[j, l, :] for j in range(3)) for l in range(3)
+        ], dim=2)
+        A2 = EH.reshape(F * 6, 3 * Np)
+        B2 = E.reshape(F * 6, 3 * Np)
+        Hcc_embed = torch.zeros(F * 6, F * 6, dtype=torch.float32, device=dev)
+        Hcc_embed[emb_r, emb_c] = Hcc_d
+        S_mat = Hcc_embed - A2 @ B2.T
+        rhs = bc.reshape(-1) - A2 @ sys_.bp3.reshape(-1)
+        L, info = torch.linalg.cholesky_ex(S_mat + 1e-9 * torch.eye(F * 6, device=dev))
+        # a failed factorization gives NaN, as jnp.linalg.cholesky does
+        L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
+        dc = torch.cholesky_solve(rhs[:, None], L)[:, 0].reshape(F, 6)
+        t3 = (dc.reshape(-1) @ B2).reshape(3, Np)
+        rp = sys_.bp3 - t3
+        dp3 = torch.stack([sum(Hi[j, l, :] * rp[j] for j in range(3)) for l in range(3)])
+        dcs = geo.se3_exp(dc) @ cam_T[:F]
+        head = torch.where(cfree[:, None, None], dcs, cam_T[:F])
+        cam_T_new = torch.cat([head, cam_T[F:]], dim=0)
+        pts_new = torch.where(prob.pt_valid[:, None], pts + dp3.T, pts)
+        return cam_T_new, pts_new
+
+    def iterate_da(carry, n_iters: int, robust: bool, tol: float):
+        """Delayed-acceptance LM: step k's accept test reuses step k+1's
+        linearization; a rejection re-linearizes at the last accepted
+        state. Stops after two consecutive non-improving steps. Host reads
+        per iteration: the accept flag and the improvement flag, in one
+        transfer when the step is accepted."""
+        cam_T, pts, lam, cost, n_in, obs_ok = carry
+        i, stall = 0, 0
+        cur_T, cur_pts = cam_T, pts
+        ref_T, ref_pts, ref_cost, ref_nin = cam_T, pts, cost, n_in
+        while i < n_iters + 1 and stall < 2:
+            first = i == 0
+            sys_cur = build_system(cur_T, cur_pts, obs_ok, robust)
+            ok_t = (sys_cur.cost <= ref_cost) & (
+                sys_cur.n_in.to(torch.float32) >= 0.6 * ref_nin.to(torch.float32))
+            imp_t = (ref_cost - sys_cur.cost) > tol * torch.clamp(torch.abs(ref_cost), min=1.0)
+            ok, improved = (bool(v) for v in torch.stack([ok_t, imp_t]).tolist())
+            if ok:
+                lin_T, lin_pts, sys_ = cur_T, cur_pts, sys_cur
+            else:
+                lin_T, lin_pts = ref_T, ref_pts
+                sys_ = build_system(ref_T, ref_pts, obs_ok, robust)
+                improved = bool((ref_cost - sys_.cost) > tol * torch.clamp(
+                    torch.abs(ref_cost), min=1.0))
+            if not first:
+                lam = torch.clamp(lam * 0.5, min=1e-9) if ok else torch.clamp(lam * 4.0, max=1e6)
+            new_T, new_pts = solve_from_system(sys_, lam, lin_T, lin_pts)
+            if not first:
+                stall = 0 if improved else stall + 1
+            i += 1
+            cur_T, cur_pts = new_T, new_pts
+            ref_T, ref_pts = lin_T, lin_pts
+            ref_cost = torch.minimum(sys_.cost, ref_cost)
+            ref_nin = sys_.n_in
+        return (ref_T, ref_pts, lam, ref_cost, ref_nin, obs_ok)
+
+    return build_system, cost_of, iterate_da
+
+
+# local-BA LM carry: (cam_T, pts, lam, cost, n_in, obs_ok)
+
+def lba_init(prob: BAProblem, inv_sigma2_levels, K, bf):
+    """Initial LM carry: SO(3)-projected poses, robust cost and inliers."""
+    cam_T = geo.orthonormalize_T(prob.cam_T)
+    cost0, n_in0 = lba_cost(prob, inv_sigma2_levels, K, bf, cam_T, prob.pts,
+                            prob.obs_valid, True)
+    lam = torch.full((), 1e-4, dtype=torch.float32, device=cam_T.device)
+    return (cam_T, prob.pts, lam, cost0, n_in0, prob.obs_valid)
+
+
+def lba_iterate(prob: BAProblem, inv_sigma2_levels, carry, K, bf, n_iters: int,
+                robust: bool, tol: float = 1e-3, n_free=None):
+    """Advance the LM carry by up to n_iters steps (early stop on stall)."""
+    _, _, iterate_da = _lba_core(prob, inv_sigma2_levels, K, bf, True, n_free)
+    return iterate_da(carry, n_iters, robust, tol)
+
+
+def lba_prune(prob: BAProblem, inv_sigma2_levels, carry, K, bf):
+    """Mid-schedule prune: drop chi2/depth outliers, reset the damping."""
+    cam_T, pts = carry[0], carry[1]
+    r, depth = _residual_unified(cam_T[prob.obs_cam.long()], pts[prob.obs_pt.long()],
+                                 prob.obs_uvr, K, bf)
+    inv_s2, comp = _edge_weights(prob.obs_oct, prob.obs_stereo, prob.obs_valid,
+                                 inv_sigma2_levels)
+    chi2 = _edge_chi2(r, inv_s2, comp)
+    obs_ok = prob.obs_valid & (chi2 <= _chi2_th(prob.obs_stereo)) & (depth > 0)
+    cost1, n_in1 = lba_cost(prob, inv_sigma2_levels, K, bf, cam_T, pts, obs_ok, False)
+    lam = torch.full((), 1e-4, dtype=torch.float32, device=cam_T.device)
+    return (cam_T, pts, lam, cost1, n_in1, obs_ok)
+
+
+def lba_finalize(prob: BAProblem, inv_sigma2_levels, carry, K, bf) -> BAResult:
+    """Final chi2 classification for observation erasure."""
+    cam_T, pts, _, cost, _, _ = carry
+    r, depth = _residual_unified(cam_T[prob.obs_cam.long()], pts[prob.obs_pt.long()],
+                                 prob.obs_uvr, K, bf)
+    inv_s2, comp = _edge_weights(prob.obs_oct, prob.obs_stereo, prob.obs_valid,
+                                 inv_sigma2_levels)
+    chi2 = _edge_chi2(r, inv_s2, comp)
+    inlier = prob.obs_valid & (chi2 <= _chi2_th(prob.obs_stereo)) & (depth > 0)
+    return BAResult(cam_T=geo.orthonormalize_T(cam_T), pts=pts, obs_inlier=inlier, cost=cost)

@@ -1,0 +1,116 @@
+"""The port's whole RGB-D slice against the JAX package on the CPU:
+System.track_rgbd over a forward synthetic sequence (the config of
+tests/test_determinism.py) in both packages, plus the port's determinism,
+its refusal of configurations outside the slice, and its independence from
+jax."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+N_FRAMES = 22
+N_RERUN = 12
+
+
+def _cfg_kw():
+    from orb_slam2_comment_tpu.utils import synthetic as syn
+
+    K = syn.DEFAULT_K
+    return dict(sensor="rgbd", fx=K[0], fy=K[1], cx=K[2], cy=K[3],
+                bf=K[0] * syn.DEFAULT_BASELINE, n_features=500, n_levels=4,
+                max_keyframes=32, max_points=8192, grow_capacity=False, match_th_scale=1.5)
+
+
+def _run(system, frames):
+    recs = []
+    for f in frames:
+        out = system.track_rgbd(f["image"], f["depth"], f["timestamp"])
+        recs.append((out.state, out.n_inliers, out.created_kf,
+                     None if out.Tcw is None else np.asarray(out.Tcw, np.float64)))
+    system.shutdown()
+    return recs
+
+
+@pytest.fixture(scope="module")
+def runs():
+    from orb_slam2_comment_tpu.models.system import System as JSystem
+    from orb_slam2_comment_tpu.utils import synthetic as syn
+    from orb_slam2_comment_tpu.utils.config import SlamConfig as JConfig
+    from orb_slam2_comment_tpu_torch.models.system import System as TSystem
+    from orb_slam2_comment_tpu_torch.utils.config import SlamConfig as TConfig
+
+    scene = syn.make_scene(n_points=2000, seed=0, extent=(8.0, 5.0, 8.0), z_near=1.0)
+    poses = syn.make_trajectory("forward", n_frames=N_FRAMES, step=0.03)
+    frames = list(syn.render_sequence(scene, poses, K=syn.DEFAULT_K, depth=True))
+    # reading out.state resolves each frame before the next one, so the
+    # JAX pipeline runs in the same order as the port's synchronous tracker
+    js = JSystem(JConfig(**_cfg_kw()), enable_loop_closing=False)
+    jrec = _run(js, frames)
+    ts = TSystem(TConfig(**_cfg_kw()), enable_loop_closing=False, device="cpu")
+    trec = _run(ts, frames)
+    ts2 = TSystem(TConfig(**_cfg_kw()), enable_loop_closing=False, device="cpu")
+    trec2 = _run(ts2, frames[:N_RERUN])
+    return frames, (js, jrec), (ts, trec), trec2
+
+
+def test_slice_tracks_like_jax(runs):
+    """Every frame tracked in both, the same keyframes, per-frame
+    translations within 1 mm and ATE within 0.5 mm of JAX's. Not exact: the
+    pyramid resize products and the LM/BA sums round differently in the
+    two frameworks (observed: translations agree to ~3e-5 m, equal inlier
+    counts and keyframe frames)."""
+    from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
+
+    frames, (js, jrec), (ts, trec), _ = runs
+    assert all(r[0] == 1 for r in jrec) and all(r[0] == 1 for r in trec)
+    assert [r[2] for r in trec] == [r[2] for r in jrec]
+    assert ts.tracker.n_kfs == js.tracker.n_kfs >= 3
+    dt = max(np.abs(a[3][:3, 3] - b[3][:3, 3]).max() for a, b in zip(trec, jrec))
+    assert dt <= 1e-3, dt
+    n_inl_diff = max(abs(a[1] - b[1]) for a, b in zip(trec, jrec))
+    assert n_inl_diff <= 5, n_inl_diff
+    gt = [f["Tcw_gt"] for f in frames]
+    ate_t = ate_rmse([r[3] for r in trec], gt)
+    ate_j = ate_rmse([r[3] for r in jrec], gt)
+    assert ate_t <= ate_j + 5e-4, (ate_t, ate_j)
+    assert ate_t < 0.02
+
+
+def test_slice_is_deterministic(runs):
+    _, _, (_, trec), trec2 = runs
+    for a, b in zip(trec[:N_RERUN], trec2):
+        assert a[:3] == b[:3]
+        np.testing.assert_array_equal(a[3], b[3])
+
+
+def test_slice_refuses_what_it_does_not_port():
+    from orb_slam2_comment_tpu_torch.models.system import System
+    from orb_slam2_comment_tpu_torch.utils.config import SlamConfig
+
+    base = dict(_cfg_kw(), max_keyframes=8, max_points=1024)
+    for kw in (dict(sensor="stereo"), dict(grow_capacity=True), dict(chunked_mapper=False),
+               dict(localization_only=True)):
+        with pytest.raises(NotImplementedError):
+            System(SlamConfig(**dict(base, **kw)), enable_loop_closing=False, device="cpu")
+    with pytest.raises(NotImplementedError):
+        System(SlamConfig(**base), device="cpu")   # loop closing on by default
+
+
+def test_port_never_imports_jax():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys\n"
+            "import orb_slam2_comment_tpu_torch.models.system\n"
+            "import orb_slam2_comment_tpu_torch.ops.lm_cuda, orb_slam2_comment_tpu_torch.ops.lba_cuda\n"
+            "import orb_slam2_comment_tpu_torch.utils.render, orb_slam2_comment_tpu_torch.utils.synthetic\n"
+            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+            "assert 'orb_slam2_comment_tpu' not in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
