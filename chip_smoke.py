@@ -1,14 +1,24 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the four hand-written CUDA kernels of orb_slam2_comment_tpu_torch,
+Builds the four hand-written CUDA kernels of orb_slam2_comment_tpu_torch and
 checks each against its plain PyTorch version on the card at the shapes of
-the RGB-D main path, then drives the main path — System.track_rgbd over a
-bench-shaped synthetic sequence (bench.py's config, scene and trajectory) —
-and checks that every frame tracks, keyframes and local BA happen, every
-kernel ran, a rerun is bit-identical and the trajectory error is small.
+the RGB-D main path (K3 also as one batched launch of 5 poses, as
+relocalization runs it). Then it drives three paths of the default
+`System(cfg, device="cuda")` (loop closing on, as bench.py builds it), each
+with the launch counts set to 0 just before it and read just after:
 
-    python3 chip_smoke.py [--frames N] [--profile FILE]
+  main   bench.py's config, scene and forward trajectory: every frame
+         tracks, keyframes, local BA and loop detection happen, the
+         keyframe database indexes every keyframe, a rerun is bit-identical
+         and the trajectory error is small;
+  reloc  frames 0-79, 3 textureless frames (LOST), then frames 40-79 again:
+         the first returning frame relocalizes through the batched K3;
+  loop   the orbit of tests/test_loop_closing.py (56 frames) at the bench
+         config: a loop closes, the background global BA is applied, the
+         trajectory error is small and a rerun is bit-identical.
+
+    python3 chip_smoke.py [--frames N] [--profile FILE] [--kernels-only]
 
 Run from the repository root. Exits nonzero on any failure and when no
 CUDA device is present. The last stdout line is
@@ -35,7 +45,28 @@ KERNEL_ROWS = [
      "orb_slam2_comment_tpu/ops/lm_pallas.py:301"),
     ("lba_build", "orb_slam2_comment_tpu_torch/csrc/lba_build.cu",
      "orb_slam2_comment_tpu/ops/lba_pallas.py:260"),
+    ("pose_lm_batched", "orb_slam2_comment_tpu_torch/csrc/pose_lm.cu",
+     "orb_slam2_comment_tpu/ops/lm_pallas.py:301"),
 ]
+
+
+def counters():
+    """(wrapper, attribute) of each kernel's launch count, in KERNEL_ROWS
+    order."""
+    from orb_slam2_comment_tpu_torch.ops import lba_cuda, lm_cuda, orb
+
+    return [(orb.fast_nms, "launches"), (orb.gather_patches, "launches"),
+            (lm_cuda.pose_optimize_lm, "launches"), (lba_cuda.build_system, "launches"),
+            (lm_cuda.pose_optimize_lm, "batched_launches")]
+
+
+def zero_counts():
+    for fn, attr in counters():
+        setattr(fn, attr, 0)
+
+
+def read_counts():
+    return [getattr(fn, attr) for fn, attr in counters()]
 
 
 def cuda_ms(fn, reps=30, warm=3):
@@ -125,10 +156,9 @@ def check_k1_k2(cfg, frame, dev):
     return k1, k2
 
 
-def check_k3(cfg, dev):
-    from orb_slam2_comment_tpu_torch.ops import lm_cuda
-
-    r = np.random.default_rng(0)
+def k3_problem(cfg, r):
+    """One motion-only BA problem at the main path's feature count:
+    (T_gt, [T0, Xw, obs, octave, is_stereo, valid, inv_sigma2] as numpy)."""
     N = sum(cfg.orb.level_budgets())
     K, bf = cfg.K, cfg.bf
     Xw = (r.uniform([-3, -2, 2.0], [3, 2, 8.0], size=(N, 3))).astype(np.float32)
@@ -143,9 +173,18 @@ def check_k3(cfg, dev):
     obs[out_idx, :2] += r.normal(0, 40.0, (len(out_idx), 2)).astype(np.float32)
     T0 = np.eye(4, dtype=np.float32)
     T0[:3, 3] = [0.05, 0.0, 0.1]
-    args = [torch.from_numpy(a).to(dev) for a in (
-        T0, Xw, obs, r.integers(0, 8, N).astype(np.int32), r.random(N) > 0.5,
-        r.random(N) < 0.9, (1.0 / 1.44 ** np.arange(8)).astype(np.float32))]
+    return T_gt, [T0, Xw, obs, r.integers(0, 8, N).astype(np.int32), r.random(N) > 0.5,
+                  r.random(N) < 0.9, (1.0 / 1.44 ** np.arange(8)).astype(np.float32)]
+
+
+def check_k3(cfg, dev):
+    from orb_slam2_comment_tpu_torch.ops import lm_cuda
+
+    r = np.random.default_rng(0)
+    K, bf = cfg.K, cfg.bf
+    T_gt, arrs = k3_problem(cfg, r)
+    N = arrs[1].shape[0]
+    args = [torch.from_numpy(a).to(dev) for a in arrs]
     ker = lm_cuda.pose_optimize_lm(*args, K, bf)
     pl = lm_cuda.pose_optimize_plain(*args, K, bf)
     dT = (ker.Tcw - pl.Tcw).abs().max().item()
@@ -159,6 +198,58 @@ def check_k3(cfg, dev):
     print(f"# K3 pose_lm: N={N} |dT|={dT:.2e} |dinl|={dn} (inliers {int(ker.n_inliers)}, "
           f"pose vs truth {gt_err:.2e}); {res['ms']:.4f} ms (plain {res['plain_ms']:.4f})",
           flush=True)
+    return res
+
+
+def check_k3_batched(cfg, dev, B=5):
+    """K3 over a batch of B poses (relocalization's candidates): the K3
+    check's problem with perturbed starts and edge masks, the last one all
+    invalid (a disabled candidate). The batched launch must equal B single
+    launches bit for bit, and each pose its plain version within K3's
+    tolerances (tests/test_tpu_parity.py:63-66)."""
+    from orb_slam2_comment_tpu_torch.ops import lm_cuda
+
+    r = np.random.default_rng(1)
+    K, bf = cfg.K, cfg.bf
+    _, (T0, Xw, obs, octv, stereo, _, inv_s2) = k3_problem(cfg, r)
+    N = Xw.shape[0]
+    T0s = np.tile(T0, (B, 1, 1))
+    T0s[:, :3, 3] += r.normal(0, 0.03, (B, 3)).astype(np.float32)
+    valid = r.random((B, N)) < np.linspace(0.95, 0.5, B)[:, None]
+    valid[-1] = False
+
+    def stack(a):
+        return torch.from_numpy(np.ascontiguousarray(np.broadcast_to(a, (B,) + a.shape))).to(dev)
+
+    args = [torch.from_numpy(T0s).to(dev), stack(Xw), stack(obs), stack(octv), stack(stereo),
+            torch.from_numpy(valid).to(dev)]
+    inv = torch.from_numpy(inv_s2).to(dev)
+    bat = lm_cuda.pose_optimize_lm(*args, inv, K, bf)
+    dT, dn = 0.0, 0
+    for b in range(B):
+        one = [a[b] for a in args]
+        single = lm_cuda.pose_optimize_lm(*one, inv, K, bf)
+        if not (torch.equal(single.Tcw, bat.Tcw[b]) and torch.equal(single.inliers,
+                                                                    bat.inliers[b])):
+            raise AssertionError(f"K3 batched pose {b} differs from its single launch")
+        pl = lm_cuda.pose_optimize_plain(*one, inv, K, bf)
+        dT = max(dT, (bat.Tcw[b] - pl.Tcw).abs().max().item())
+        dn = max(dn, abs(int(bat.n_inliers[b]) - int(pl.n_inliers)))
+    if not (dT < 5e-3 and dn <= 5):
+        raise AssertionError(f"K3 batched disagrees with plain: |dT|={dT} |dinl|={dn}")
+
+    def singles(fn):
+        for b in range(B):
+            fn(*[a[b] for a in args], inv, K, bf)
+
+    res = dict(max_abs_err=dT,
+               ms=cuda_ms(lambda: lm_cuda.pose_optimize_lm(*args, inv, K, bf)),
+               plain_ms=cuda_ms(lambda: singles(lm_cuda.pose_optimize_plain), reps=3, warm=1))
+    single_ms = cuda_ms(lambda: singles(lm_cuda.pose_optimize_lm))
+    print(f"# K3 batched pose_lm: B={B} x N={N}, equal to {B} single launches bit for bit; "
+          f"vs plain |dT|={dT:.2e} |dinl|={dn} (inliers {bat.n_inliers.tolist()}); "
+          f"{res['ms']:.4f} ms batched vs {single_ms:.4f} ms for {B} single launches "
+          f"(plain {res['plain_ms']:.4f})", flush=True)
     return res
 
 
@@ -226,17 +317,28 @@ def check_k4(dev):
 
 
 # ---------------------------------------------------------------------------
-# the main path
+# the three paths of the default System
 # ---------------------------------------------------------------------------
 
-def run_sequence(cfg, frames, count_syncs_from=None, profile=None):
+def make_system(cfg, dev):
+    """The default System, as bench.py builds it (loop closing on), with
+    its device named; its map and database must live on the card."""
+    from orb_slam2_comment_tpu_torch.models.system import System
+
+    system = System(cfg, device=dev)
+    if not (system.loop_closer is not None and system.tracker.map.kf_pose.is_cuda
+            and system.tracker.map.pt_pos.is_cuda and system.db.valid.is_cuda):
+        raise AssertionError("the default System is not a loop-closing system on the card")
+    return system
+
+
+def run_sequence(cfg, frames, dev, count_syncs_from=None, profile=None):
     """System.track_rgbd over the frames. Returns (system, per-frame
     records, per-frame seconds, phases run, host syncs per counted frame)."""
     from orb_slam2_comment_tpu_torch.models import local_mapping as lm
-    from orb_slam2_comment_tpu_torch.models.system import System
 
     phases = lm._phase_list(cfg)
-    system = System(cfg, enable_loop_closing=False)
+    system = make_system(cfg, dev)
     recs, secs, ran, syncs = [], [], set(), []
     for i, f in enumerate(frames):
         ds = system.tracker.ds
@@ -271,6 +373,206 @@ def run_sequence(cfg, frames, count_syncs_from=None, profile=None):
     return system, recs, secs, ran, syncs
 
 
+def check_database(system):
+    """Every live keyframe is indexed in the database, and loop detection
+    was harvested at least once."""
+    live = system.tracker.map.kf_valid.cpu().numpy()
+    indexed = system.db.valid.cpu().numpy()
+    if not indexed[live].all():
+        raise AssertionError(f"keyframes {np.where(live & ~indexed)[0]} not in the database")
+    if system.loop_closer.n_detections < 1:
+        raise AssertionError("no loop detection was harvested")
+    return int(live.sum()), system.loop_closer.n_detections
+
+
+def main_path(cfg, frames, dev, profile):
+    from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
+
+    system, recs, secs, ran, _ = run_sequence(cfg, frames, dev, profile=profile)
+    torch.cuda.synchronize()
+    n_kfs = system.tracker.n_kfs
+    if n_kfs < 3:
+        raise AssertionError(f"only {n_kfs} keyframes")
+    if not {"ba1", "ba2", "ba3"} <= ran:
+        raise AssertionError(f"mapper phases run: {sorted(ran)}")
+    n_indexed, n_detect = check_database(system)
+    poses = [np.asarray(r[0], np.float64) for r in recs]
+    gt = [f["Tcw_gt"] for f in frames]
+    ate = ate_rmse(poses, gt)
+    if not np.all(np.isfinite(np.stack(poses))) or not ate < 0.02:
+        raise AssertionError(f"ATE {ate} m")
+
+    n_rerun = min(40, len(frames))
+    _, recs2, _, _, syncs = run_sequence(cfg, frames[:n_rerun], dev, count_syncs_from=10)
+    for i in range(n_rerun):
+        if not np.array_equal(recs[i][0], recs2[i][0]):
+            raise AssertionError(f"rerun differs at frame {i}")
+
+    n_warm = 8
+    dt = np.asarray(secs[n_warm:]) * 1e3
+    return dict(frames=len(frames), timed=len(dt), fps=len(dt) / (dt.sum() / 1e3),
+                p50_ms=float(np.percentile(dt, 50)), p90_ms=float(np.percentile(dt, 90)),
+                p99_ms=float(np.percentile(dt, 99)), max_ms=float(dt.max()),
+                n_kfs=n_kfs, ate_m=ate, kf_frames=int(sum(r[2] for r in recs)),
+                mapper_phases=sorted(ran), rerun_identical_frames=n_rerun,
+                db_indexed_kfs=n_indexed, loop_detections=n_detect,
+                host_syncs_per_frame_median=float(np.median(syncs)) if syncs else None,
+                host_syncs_per_frame_max=int(max(syncs)) if syncs else None,
+                inliers_median=float(np.median([r[1] for r in recs[1:]])))
+
+
+def reloc_path(cfg, frames, dev):
+    """Frames 0-79, three textureless frames (LOST), then frame 40 and
+    41-79 again with later timestamps: the first returning frame must
+    relocalize through the batched K3, within 5 cm of the truth, and every
+    later frame must track."""
+    from orb_slam2_comment_tpu_torch.models.tracking import LOST, OK
+    from orb_slam2_comment_tpu_torch.ops import lm_cuda
+
+    system = make_system(cfg, dev)
+    for i, f in enumerate(frames[:80]):
+        if system.track_rgbd(f["image"], f["depth"], f["timestamp"]).state != OK:
+            raise AssertionError(f"reloc path: frame {i} not tracked")
+    n_kfs = system.tracker.n_kfs
+    ts = frames[79]["timestamp"]
+    blank = np.full_like(frames[0]["image"], 128)
+    no_depth = np.zeros_like(frames[0]["depth"])
+    lost_ms = []
+    for _ in range(3):
+        ts += 1.0 / 30
+        t0 = time.perf_counter()
+        state = system.track_rgbd(blank, no_depth, ts).state
+        torch.cuda.synchronize()
+        lost_ms.append((time.perf_counter() - t0) * 1e3)
+        if state != LOST:
+            raise AssertionError(f"a textureless frame came back in state {state}")
+    ret_ms, inliers = [], []
+    for j, f in enumerate(frames[40:80]):
+        ts += 1.0 / 30
+        b0 = lm_cuda.pose_optimize_lm.batched_launches
+        t0 = time.perf_counter()
+        out = system.track_rgbd(f["image"], f["depth"], ts)
+        torch.cuda.synchronize()
+        ret_ms.append((time.perf_counter() - t0) * 1e3)
+        if out.state != OK:
+            raise AssertionError(f"returning frame {40 + j}: state {out.state}")
+        inliers.append(out.n_inliers)
+        if j == 0:
+            err = float(np.linalg.norm(np.asarray(out.Tcw)[:3, 3] - f["Tcw_gt"][:3, 3]))
+            if not err < 0.05:
+                raise AssertionError(f"relocalized frame 40 is {err} m off")
+            if lm_cuda.pose_optimize_lm.batched_launches == b0:
+                raise AssertionError("relocalization did not launch the batched K3")
+    system.shutdown()
+    if system.n_resets:
+        raise AssertionError(f"{system.n_resets} auto-resets in the reloc path")
+    return dict(kfs_before_loss=n_kfs, lost_frame_ms=lost_ms, reloc_frame_ms=ret_ms[0],
+                reloc_translation_err_m=err, reloc_inliers=inliers[0],
+                later_frames_p50_ms=float(np.median(ret_ms[1:])),
+                n_kfs=system.tracker.n_kfs)
+
+
+def render_orbit():
+    """The orbit of tests/test_loop_closing.py:38-40 with its 12-frame
+    overshoot (56 frames), in sensor dtypes."""
+    from orb_slam2_comment_tpu_torch.utils import synthetic as syn
+
+    scene = syn.make_scene(n_points=1800, seed=0, extent=(14.0, 8.0, 20.0))
+    base = syn.make_trajectory("orbit", n_frames=44)
+    frames = []
+    for f in syn.render_sequence(scene, np.concatenate([base, base[:12]]), K=syn.DEFAULT_K,
+                                 depth=True):
+        f["image"] = np.clip(f["image"], 0, 255).astype(np.uint8)
+        f["depth"] = np.clip(f["depth"] * 1000.0, 0, 65535).astype(np.uint16)
+        frames.append(f)
+    return frames
+
+
+def run_orbit(cfg, frames, dev, chunk_events=None):
+    """Returns (system, poses, per-frame seconds, loops closed after each
+    frame, frames that ended with a global BA in flight)."""
+    system = make_system(cfg, dev)
+    poses, secs, loops, in_flight = [], [], [], 0
+    for i, f in enumerate(frames):
+        t0 = time.perf_counter()
+        out = system.track_rgbd(f["image"], f["depth"], f["timestamp"])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if out.state != 1:
+            raise AssertionError(f"orbit frame {i}: tracking state {out.state}")
+        poses.append(np.asarray(out.Tcw, np.float64))
+        loops.append(system.n_loops)
+        in_flight += system.loop_closer._bg is not None
+    system.shutdown()
+    return system, poses, secs, loops, in_flight
+
+
+def loop_path(cfg, frames, dev):
+    """The orbit at the bench config: every frame tracked, >= 1 loop, the
+    background GBA in flight and applied by shutdown(), ATE < 0.10 m
+    (tests/test_loop_closing.py:50), and a bit-identical rerun."""
+    from orb_slam2_comment_tpu_torch.ops import optim
+    from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
+
+    # time each GBA chunk with CUDA events (no host sync added)
+    events = []
+    chunk = optim.gba_chunk
+
+    def timed_chunk(*a, **k):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = chunk(*a, **k)
+        e.record()
+        events.append((s, e))
+        return out
+
+    optim.gba_chunk = timed_chunk
+    try:
+        system, poses, secs, loops, in_flight = run_orbit(cfg, frames, dev)
+    finally:
+        optim.gba_chunk = chunk
+    torch.cuda.synchronize()
+    lc = system.loop_closer
+    if system.n_loops < 1:
+        raise AssertionError("the orbit closed no loop")
+    if not (lc.n_gba_started >= 1 and in_flight >= 1 and lc.n_gba_applied >= 1):
+        raise AssertionError(f"background GBA: started {lc.n_gba_started}, in flight after "
+                             f"{in_flight} frames, applied {lc.n_gba_applied}")
+    ate = ate_rmse(poses, [f["Tcw_gt"] for f in frames])
+    if not (np.all(np.isfinite(np.stack(poses))) and ate < 0.10):
+        raise AssertionError(f"orbit ATE {ate} m")
+    _, poses2, _, _, _ = run_orbit(cfg, frames, dev)
+    for i, (a, b) in enumerate(zip(poses, poses2)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"orbit rerun differs at frame {i}")
+    close = int(np.argmax(np.asarray(loops) >= 1))
+    # reference: the JAX package on the CPU over these same uint8/uint16 frames
+    cand, kf = (int(x) for x in lc.loop_edges[0][:2])
+    return dict(frames=len(frames), n_loops=system.n_loops, loop_pair=[kf, cand],
+                closing_frame=close, closing_frame_ms=secs[close] * 1e3,
+                frame_p50_ms=float(np.median(secs) * 1e3),
+                gba_chunks=len(events),
+                gba_chunk_ms_median=float(np.median([s.elapsed_time(e) for s, e in events])),
+                gba_frames_in_flight=in_flight, gba_applied=lc.n_gba_applied,
+                n_kfs=system.tracker.n_kfs, ate_m=ate, rerun_identical_frames=len(frames),
+                reference_cpu=dict(loop_pair=[22, 0], n_kfs=27, ate_m=0.02025))
+
+
+def drive(name, fn, path_kernels, per_path):
+    """Run one path with the launch counts set to 0 just before it and read
+    just after; every kernel the path runs must have launched."""
+    zero_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    per_path[name] = counts
+    missing = [KERNEL_ROWS[k][0] for k in path_kernels if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{name} path: kernels never launched: {missing} ({counts})")
+    print(f"# {name}_path " + json.dumps(res), flush=True)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=120)
@@ -283,8 +585,6 @@ def main():
         return 2
     # the port first: without the repository around it, fail before printing
     from orb_slam2_comment_tpu_torch import _build
-    from orb_slam2_comment_tpu_torch.ops import lba_cuda, lm_cuda, orb
-    from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -300,57 +600,31 @@ def main():
 
     cfg = bench_config()
     t0 = time.perf_counter()
-    frames = render_frames(args.frames)
-    print(f"# rendered {len(frames)} frames in {time.perf_counter() - t0:.1f} s", flush=True)
+    frames = render_frames(max(args.frames, 80))
+    orbit = [] if args.kernels_only else render_orbit()
+    print(f"# rendered {len(frames)} + {len(orbit)} frames in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    k1, k2 = check_k1_k2(cfg, frames[0], dev)
-    k3 = check_k3(cfg, dev)
-    k4 = check_k4(dev)
+    checks = list(check_k1_k2(cfg, frames[0], dev))
+    checks += [check_k3(cfg, dev), check_k4(dev), check_k3_batched(cfg, dev)]
     torch.cuda.synchronize()
     if args.kernels_only:
         return 0
 
-    wrappers = [orb.fast_nms, orb.gather_patches, lm_cuda.pose_optimize_lm,
-                lba_cuda.build_system]
-    for wfn in wrappers:
-        wfn.launches = 0
-    system, recs, secs, ran, _ = run_sequence(cfg, frames, profile=args.profile)
-    torch.cuda.synchronize()
-    launches = [wfn.launches for wfn in wrappers]
-    if min(launches) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    n_kfs = system.tracker.n_kfs
-    if n_kfs < 3:
-        raise AssertionError(f"only {n_kfs} keyframes")
-    if not {"ba1", "ba2", "ba3"} <= ran:
-        raise AssertionError(f"mapper phases run: {sorted(ran)}")
-    poses = [np.asarray(r[0], np.float64) for r in recs]
-    gt = [f["Tcw_gt"] for f in frames]
-    ate = ate_rmse(poses, gt)
-    if not np.all(np.isfinite(np.stack(poses))) or not ate < 0.02:
-        raise AssertionError(f"ATE {ate} m")
-
-    n_rerun = min(40, len(frames))
-    _, recs2, _, _, syncs = run_sequence(cfg, frames[:n_rerun], count_syncs_from=10)
-    for i in range(n_rerun):
-        if not np.array_equal(recs[i][0], recs2[i][0]):
-            raise AssertionError(f"rerun differs at frame {i}")
-
-    n_warm = 8
-    dt = np.asarray(secs[n_warm:]) * 1e3
-    main = dict(frames=len(frames), timed=len(dt), fps=len(dt) / (dt.sum() / 1e3),
-                p50_ms=float(np.percentile(dt, 50)), p90_ms=float(np.percentile(dt, 90)),
-                p99_ms=float(np.percentile(dt, 99)), max_ms=float(dt.max()),
-                n_kfs=n_kfs, ate_m=ate, kf_frames=int(sum(r[2] for r in recs)),
-                mapper_phases=sorted(ran), rerun_identical_frames=n_rerun,
-                host_syncs_per_frame_median=float(np.median(syncs)) if syncs else None,
-                host_syncs_per_frame_max=int(max(syncs)) if syncs else None,
-                inliers_median=float(np.median([r[1] for r in recs[1:]])))
-    print("# main_path " + json.dumps(main), flush=True)
+    per_path = {}
+    k1_k4 = (0, 1, 2, 3)
+    drive("main", lambda: main_path(cfg, frames[:args.frames], dev, args.profile), k1_k4,
+          per_path)
+    drive("reloc", lambda: reloc_path(cfg, frames, dev), k1_k4 + (4,), per_path)
+    drive("loop", lambda: loop_path(cfg, orbit, dev), k1_k4, per_path)
+    print("# launches per path " + json.dumps(
+        {p: dict(zip([r[0] for r in KERNEL_ROWS], c)) for p, c in per_path.items()}),
+        flush=True)
 
     rows = []
-    for (name, src, rep), res, n in zip(KERNEL_ROWS, (k1, k2, k3, k4), launches):
-        rows.append(dict(name=name, route="cuda", source=src, replaces=rep, launches=n,
+    for k, ((name, src, rep), res) in enumerate(zip(KERNEL_ROWS, checks)):
+        rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
+                         launches=sum(c[k] for c in per_path.values()),
                          max_abs_err=res["max_abs_err"], ms=res["ms"],
                          plain_ms=res["plain_ms"]))
     print(json.dumps({"kernels": rows}))

@@ -32,9 +32,9 @@ _SIGNATURES = {
     "slam_fast_nms": [_P, _P, _I, _I, _I, _P],
     # padded, lyx, out, n, L, Hp, Wp, stream
     "slam_gather_patches": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # X, obs, invs2, comp, valid, delta, chi2th, pose0, pose_out, inl, n,
+    # X, obs, invs2, comp, valid, delta, chi2th, pose0, pose_out, inl, B, n,
     # fx, fy, cx, cy, bf, rounds, iters, robust_rounds, stream
-    "slam_pose_lm": [_P] * 10 + [_I] + [_F] * 5 + [_I] * 3 + [_P],
+    "slam_pose_lm": [_P] * 10 + [_I] * 2 + [_F] * 5 + [_I] * 3 + [_P],
     # cam_T, pts, uvr, wbase, urmask, obs_pt, cam_free, perm, seg,
     # cam_out, pp_out, e_out, Nc, Np, N_per, F, robust,
     # fx, fy, cx, cy, bf, stream

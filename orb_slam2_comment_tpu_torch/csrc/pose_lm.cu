@@ -19,6 +19,12 @@
 // sums deterministically; thread 0 solves and broadcasts the candidate pose
 // through shared memory. The per-edge inlier mask lives in the output array
 // and each edge is only ever touched by the thread that owns it.
+//
+// Batch axis: the grid has one block per pose, and block b solves pose b
+// over its own [n] edge set (inputs [B, n, ...], poses [B, 12]).
+// Relocalization solves its 5 candidate poses in one launch this way;
+// tracking launches B = 1. Each block runs the single-pose code, so a pose
+// comes out the same whatever the batch it rides in.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -157,6 +163,17 @@ __global__ void __launch_bounds__(NT) pose_lm_kernel(
   __shared__ float s_new[12];
   __shared__ float s_lam, s_cost;
   const int tid = threadIdx.x;
+  const size_t pb = blockIdx.x;  // this block's pose
+  X += pb * 3 * n;
+  O += pb * 3 * n;
+  invs2 += pb * n;
+  comp += pb * n;
+  valid += pb * n;
+  delta += pb * n;
+  chi2th += pb * n;
+  pose0 += pb * 12;
+  pose_out += pb * 12;
+  mask += pb * n;
   if (tid < 12) s_pose[tid] = pose0[tid];
   for (int i = tid; i < n; i += NT) mask[i] = valid[i];
   __syncthreads();
@@ -256,11 +273,11 @@ extern "C" int slam_pose_lm(const float* X, const float* O, const float* invs2,
                             const float* comp, const float* valid,
                             const float* delta, const float* chi2th,
                             const float* pose0, float* pose_out, float* mask,
-                            int n, float fx, float fy, float cx, float cy,
-                            float bf, int rounds, int iters, int robust_rounds,
-                            void* stream) {
+                            int B, int n, float fx, float fy, float cx,
+                            float cy, float bf, int rounds, int iters,
+                            int robust_rounds, void* stream) {
   const Cam k{fx, fy, cx, cy, bf};
-  pose_lm_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(
+  pose_lm_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(
       X, O, invs2, comp, valid, delta, chi2th, pose0, pose_out, mask, n, k,
       rounds, iters, robust_rounds);
   return (int)cudaGetLastError();

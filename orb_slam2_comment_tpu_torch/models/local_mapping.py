@@ -493,6 +493,56 @@ def _fuse_deferred_step(m: MapState, rep, acc2, src_kf: int, dst_kf: int, cfg: S
     return m.replace(pt_valid=pt_valid), rep, acc2
 
 
+def fuse_point_set_into_keyframe(m: MapState, pt_ids, dst_kf: int, cfg: SlamConfig,
+                                 radius: float = 4.0):
+    """Loop closing's SearchAndFuse body (src/LoopClosing.cc:587-643,
+    ORBmatcher::Fuse(KF, Scw, ...)): project a point set into one corrected
+    keyframe; a free feature gains the observation, and on a duplicate the
+    projected loop point replaces the keyframe's (MapPoint::Replace).
+    Returns (m', number of merges)."""
+    pmax = m.pt_pos.shape[0]
+    pid = _clip(pt_ids, pmax)
+    okp = (pt_ids >= 0) & m.pt_valid[pid]
+    X = m.pt_pos[pid]
+    Tcw = m.kf_pose[dst_kf]
+    Xc = geo.transform_points(Tcw, X)
+    uv = geo.project(cfg.K, Xc)
+    in_img = ((Xc[:, 2] > 0.05) & (uv[:, 0] >= 0) & (uv[:, 0] < cfg.width)
+              & (uv[:, 1] >= 0) & (uv[:, 1] < cfg.height))
+    cam_center = -Tcw[:3, :3].T @ Tcw[:3, 3]
+    dist = torch.linalg.norm(X - cam_center, dim=-1)
+    band = (dist >= 0.8 * m.pt_min_dist[pid]) & (dist <= 1.2 * m.pt_max_dist[pid])
+    visible = okp & in_img & band
+    pred_oct = ms.predict_scale(dist, m.pt_max_dist[pid], cfg.scale_factor, cfg.n_levels)
+    scales = const(tuple(cfg.orb.scales), X.device)
+    res = matching.match_projection(uv, visible, m.pt_desc[pid], pred_oct, _kf_feats(m, dst_kf),
+                                    radius, scales, max_dist=cfg.th_low)
+    dst_obs = m.kf_obs[dst_kf]
+    tgt_feat = res.idx
+    existing = dst_obs[tgt_feat]
+    has_existing = (existing >= 0) & m.pt_valid[_clip(existing, pmax)]
+    do = res.ok & okp & (pt_ids != existing)
+    addA = do & ~has_existing
+    new_row = scatter_set(dst_obs, tgt_feat, torch.where(addA, pt_ids, dst_obs[tgt_feat]))
+    m = m.replace(kf_obs=_set_row(m.kf_obs, dst_kf, new_row))
+    # duplicate: the loop point wins unconditionally (LoopClosing.cc:634-641)
+    dup = do & has_existing
+    winner, loser = pt_ids, existing
+    lose_c = _clip(loser, pmax)
+    rep = torch.arange(pmax, dtype=torch.int32, device=X.device)
+    rep = scatter_set(rep, lose_c, torch.where(dup, winner, rep[lose_c]))
+    kf_obs = torch.where(m.kf_obs >= 0, rep[_clip(m.kf_obs, pmax)], torch.full_like(m.kf_obs, -1))
+    pt_valid = scatter_set(m.pt_valid, lose_c,
+                           torch.where(dup, torch.zeros_like(dup), m.pt_valid[lose_c]))
+    zero = torch.zeros_like(m.pt_visible[lose_c])
+    upd = torch.stack([torch.where(dup, m.pt_visible[lose_c], zero),
+                       torch.where(dup, m.pt_found[lose_c], zero)], dim=-1)
+    acc = torch.zeros((pmax, 2), dtype=torch.int32, device=X.device).index_add_(
+        0, _clip(winner, pmax), upd)
+    return m.replace(kf_obs=kf_obs, pt_valid=pt_valid, pt_visible=m.pt_visible + acc[:, 0],
+                     pt_found=m.pt_found + acc[:, 1]), torch.sum(dup)
+
+
 def fuse_targets_scan(m: MapState, center_kf: int, targets, cfg: SlamConfig, obs_counts):
     """SearchInNeighbors over a target slice (both directions per target)
     with one deferred merge application at the end. targets: host list of

@@ -69,7 +69,9 @@ def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
         a = a.astype(np.float32)
     elif a.dtype == np.int64:
         a = a.astype(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    # a read-only source (a JAX buffer) is copied: the port writes rows in place
+    a = np.ascontiguousarray(a) if a.flags.writeable else np.array(a, copy=True)
+    return torch.from_numpy(a).to(device)
 
 
 def from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> MapState:

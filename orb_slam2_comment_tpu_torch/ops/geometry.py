@@ -58,6 +58,43 @@ def _so3_left_jacobian(phi):
     return _eye(3, phi) + b[..., None, None] * W + c[..., None, None] * W2
 
 
+def so3_log(R):
+    """Inverse of so3_exp; handles angles near 0 and pi."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    theta = torch.arccos(cos_t)
+    w = 0.5 * torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                           R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    sin_t = torch.sin(theta)
+    big = torch.abs(sin_t) > 1e-5
+    scale = torch.where(big, theta / torch.where(big, sin_t, torch.ones_like(sin_t)),
+                        torch.ones_like(sin_t))
+    w_generic = w * scale[..., None]
+    # near pi: R ~ I + 2 W^2 / theta^2, the diagonal gives the axis
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
+    axis2 = torch.clamp((diag - cos_t[..., None])
+                        / torch.clamp(1.0 - cos_t[..., None], min=1e-8), min=0.0)
+    axis = torch.sqrt(axis2)
+    sxy = R[..., 0, 1] + R[..., 1, 0]
+    sxz = R[..., 0, 2] + R[..., 2, 0]
+    ay = torch.where(sxy >= 0, axis[..., 1], -axis[..., 1])
+    az = torch.where(sxz >= 0, axis[..., 2], -axis[..., 2])
+    w_pi = torch.stack([axis[..., 0], ay, az], dim=-1) * theta[..., None]
+    return torch.where((theta > 3.0)[..., None], w_pi, w_generic)
+
+
+def _so3_left_jacobian_inv(phi):
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS)
+    W = hat(phi)
+    W2 = W @ W
+    half = 0.5 * theta
+    big = theta2 > _EPS
+    cot = torch.where(big, half / torch.tan(half + _EPS), torch.ones_like(half))
+    k = torch.where(big, (1.0 - cot) / (theta2 + _EPS), 1.0 / 12.0 + theta2 / 720.0)
+    return _eye(3, phi) - 0.5 * W + k[..., None, None] * W2
+
+
 def se3_exp(xi):
     """xi = [rho, phi] -> 4x4 transform [[R, J rho], [0, 1]]."""
     rho, phi = xi[..., :3], xi[..., 3:6]
@@ -65,6 +102,86 @@ def se3_exp(xi):
     J = _so3_left_jacobian(phi)
     t = (J @ rho[..., None])[..., 0]
     return make_T(R, t)
+
+
+def se3_log(T):
+    phi = so3_log(T[..., :3, :3])
+    rho = (_so3_left_jacobian_inv(phi) @ T[..., :3, 3, None])[..., 0]
+    return torch.cat([rho, phi], dim=-1)
+
+
+# --- Sim(3): 4x4 matrices with upper-left s R --------------------------------
+
+def sim3_make(R, t, s):
+    return make_T(R * s[..., None, None], t)
+
+
+def sim3_scale(S):
+    """Scale of a Sim3 matrix (row norm of sR)."""
+    return torch.sqrt(torch.sum(S[..., 0, :3] * S[..., 0, :3], dim=-1))
+
+
+def sim3_exp(zeta):
+    """zeta = [rho, phi, sigma] -> 4x4 Sim3 with s = exp(sigma); the
+    closed-form V of the Sim(3) exponential (t = V rho), as the reference."""
+    rho, phi, sigma = zeta[..., :3], zeta[..., 3:6], zeta[..., 6]
+    s = torch.exp(sigma)
+    R = so3_exp(phi)
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS)
+    W = hat(phi)
+    W2 = W @ W
+    near_zero_sigma = torch.abs(sigma) < 1e-5
+    near_zero_theta = theta2 < _EPS
+    one = torch.ones_like(sigma)
+    sigma_safe = torch.where(near_zero_sigma, one, sigma)
+    theta_safe = torch.where(near_zero_theta, one, theta)
+    A_ = torch.where(near_zero_sigma, one, (s - 1.0) / sigma_safe)
+    st, ct = torch.sin(theta), torch.cos(theta)
+    denom = sigma_safe ** 2 + theta_safe ** 2
+    b_full = ((sigma_safe * st + theta_safe * (1.0 - s * ct)) / (theta_safe * denom)) * s / s
+    b_sigma0 = (1.0 - ct) / theta_safe ** 2
+    c_full = (A_ - ((s * ct - 1.0) * sigma_safe + s * st * theta_safe) / denom) / theta_safe ** 2
+    c_sigma0 = (theta_safe - st) / theta_safe ** 3
+    zero = torch.zeros_like(sigma)
+    b = torch.where(near_zero_theta, zero, torch.where(near_zero_sigma, b_sigma0, b_full))
+    c = torch.where(near_zero_theta, zero, torch.where(near_zero_sigma, c_sigma0, c_full))
+    V = A_[..., None, None] * _eye(3, zeta) + b[..., None, None] * W + c[..., None, None] * W2
+    t = (V @ rho[..., None])[..., 0]
+    return sim3_make(R, t, s)
+
+
+def sim3_log(S):
+    """Inverse of sim3_exp: V from unit-rho exponentials, then V rho = t."""
+    s = sim3_scale(S)
+    R = S[..., :3, :3] / s[..., None, None]
+    t = S[..., :3, 3]
+    sigma = torch.log(s)
+    phi = so3_log(R)
+    eye = _eye(3, S)
+
+    def v_col(i):
+        e = eye[i].expand(phi.shape)
+        return sim3_exp(torch.cat([e, phi, sigma[..., None]], dim=-1))[..., :3, 3]
+
+    V = torch.stack([v_col(i) for i in range(3)], dim=-1)
+    rho = torch.linalg.solve_ex(V, t[..., None])[0][..., 0]   # no host sync on CUDA
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)
+
+
+def quat_to_rot(q):
+    """Quaternion (x, y, z, w) -> rotation matrix."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    n = x * x + y * y + z * z + w * w
+    s = 2.0 / torch.clamp(n, min=1e-12)
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    return torch.stack([
+        torch.stack([1 - (yy + zz), xy - wz, xz + wy], dim=-1),
+        torch.stack([xy + wz, 1 - (xx + zz), yz - wx], dim=-1),
+        torch.stack([xz - wy, yz + wx, 1 - (xx + yy)], dim=-1),
+    ], dim=-2)
 
 
 def make_T(R, t):

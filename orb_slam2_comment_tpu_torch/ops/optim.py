@@ -1,5 +1,6 @@
-"""Levenberg-Marquardt solvers of the RGB-D main path — the port of the
-pose-only LM and the chunked local BA of `orb_slam2_comment_tpu/ops/optim.py`.
+"""Levenberg-Marquardt solvers — the port of `orb_slam2_comment_tpu/ops/optim.py`:
+pose-only LM, the chunked local BA, and loop closing's Sim3 optimization,
+essential graph and chunked global BA.
 
 - `pose_optimize`: motion-only BA (Optimizer::PoseOptimization). The plain
   version `pose_optimize_plain` is the reference's XLA branch; CUDA
@@ -21,6 +22,7 @@ import torch
 
 from orb_slam2_comment_tpu_torch import constants as C
 from orb_slam2_comment_tpu_torch.ops import geometry as geo
+from orb_slam2_comment_tpu_torch.ops.scatter import SegmentPlan
 
 
 def _residual_unified(Tcw, Xw, obs, K, bf):
@@ -430,6 +432,369 @@ def lba_prune(prob: BAProblem, inv_sigma2_levels, carry, K, bf):
 def lba_finalize(prob: BAProblem, inv_sigma2_levels, carry, K, bf) -> BAResult:
     """Final chi2 classification for observation erasure."""
     cam_T, pts, _, cost, _, _ = carry
+    r, depth = _residual_unified(cam_T[prob.obs_cam.long()], pts[prob.obs_pt.long()],
+                                 prob.obs_uvr, K, bf)
+    inv_s2, comp = _edge_weights(prob.obs_oct, prob.obs_stereo, prob.obs_valid,
+                                 inv_sigma2_levels)
+    chi2 = _edge_chi2(r, inv_s2, comp)
+    inlier = prob.obs_valid & (chi2 <= _chi2_th(prob.obs_stereo)) & (depth > 0)
+    return BAResult(cam_T=geo.orthonormalize_T(cam_T), pts=pts, obs_inlier=inlier, cost=cost)
+
+
+# ---------------------------------------------------------------------------
+# Sim3 optimization, essential graph and global BA (loop closing)
+#
+# Jacobians of the Sim3 residuals are forward-mode derivatives of the same
+# residual functions (the reference's jax.jacfwd), taken as one batched
+# torch.func.jvp per tangent direction. Every float scatter-add of the
+# reference is a segment sum, so CUDA reruns are bit-identical.
+# ---------------------------------------------------------------------------
+
+def _tangent_jacobian(f, n_args: int, dim: int, like: torch.Tensor, batch=(1,)):
+    """(f(0...), [J_a for each argument a]) of f(*deltas) -> [..., R] at
+    zero tangents of shape batch + (dim,); J_a is [..., R, dim]. All
+    n_args * dim tangent directions go through ONE jvp, along a leading
+    axis that f must broadcast (one pass of host dispatch instead of one
+    per direction). The batch axis is never empty: forward-mode AD of
+    torch 2.x promotes a 0-d float32 tangent plus a Python float to
+    float64."""
+    nd = n_args * dim
+    lead = (nd,) + tuple(batch) + (dim,)
+    eye = torch.eye(nd, dtype=like.dtype, device=like.device).reshape(nd, n_args, dim)
+    zs = tuple(torch.zeros(lead, dtype=like.dtype, device=like.device) for _ in range(n_args))
+    tang = tuple(eye[:, a].reshape((nd,) + (1,) * len(batch) + (dim,)).expand(lead)
+                 for a in range(n_args))
+    r, cols = torch.func.jvp(f, zs, tang)
+    cols = cols.movedim(0, -1)
+    return r[0], [cols[..., a * dim:(a + 1) * dim] for a in range(n_args)]
+
+
+def _scale_mask(fix_scale: bool, like: torch.Tensor) -> torch.Tensor:
+    m = torch.ones(7, dtype=like.dtype, device=like.device)
+    if fix_scale:
+        m[6] = 0.0
+    return m
+
+
+class Sim3Result(NamedTuple):
+    S12: torch.Tensor
+    inliers: torch.Tensor
+    n_inliers: torch.Tensor
+
+
+def sim3_optimize(S12_0, Xc1, Xc2, obs1, obs2, inv_sigma2_1, inv_sigma2_2, valid, K1, K2,
+                  fix_scale: bool = False, chi2_th: float = 10.0,
+                  iters: int = 10) -> Sim3Result:
+    """Single-vertex Sim3 LM with paired forward/inverse projection edges
+    (Optimizer::OptimizeSim3): 5 iterations, chi2 prune, `iters` more."""
+    scale_mask = _scale_mask(fix_scale, S12_0)
+    eye7 = torch.eye(7, dtype=S12_0.dtype, device=S12_0.device)
+
+    def residuals(S12):
+        r1 = obs1 - geo.project(K1, geo.transform_points(S12, Xc2))
+        r2 = obs2 - geo.project(K2, geo.transform_points(geo.inv_T(S12), Xc1))
+        return r1, r2
+
+    def chi2_of(S12):
+        r1, r2 = residuals(S12)
+        return (inv_sigma2_1 * torch.sum(r1 * r1, dim=-1),
+                inv_sigma2_2 * torch.sum(r2 * r2, dim=-1))
+
+    def run(S12, cost, ok, n_it):
+        lam = torch.full((), 1e-3, dtype=S12.dtype, device=S12.device)
+        okf = ok.to(S12.dtype)
+        w = torch.cat([inv_sigma2_1 * okf, inv_sigma2_2 * okf])[:, None]
+        for _ in range(n_it):
+            def r_of(dz, S12=S12):     # dz [D, 1, 7]
+                r1, r2 = residuals(geo.sim3_exp(dz * scale_mask) @ S12)
+                return torch.cat([r1, r2], dim=-2)
+
+            r, (J,) = _tangent_jacobian(r_of, 1, 7, S12)          # J [2N, 2, 7]
+            wb = w.expand(r.shape)
+            H = torch.einsum("nki,nk,nkj->ij", J, wb, J)
+            b = -torch.einsum("nki,nk->i", J * wb[:, :, None], r)
+            Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-8 * eye7
+            dz = torch.linalg.solve_ex(Hd, b)[0] * scale_mask
+            S_new = geo.sim3_exp(dz) @ S12
+            c1, c2 = chi2_of(S_new)
+            new_cost = torch.sum(torch.where(ok, c1 + c2, torch.zeros_like(c1)))
+            accept = new_cost < cost
+            S12 = torch.where(accept, S_new, S12)
+            lam = torch.where(accept, lam * 0.5, lam * 4.0)
+            cost = torch.where(accept, new_cost, cost)
+        return S12
+
+    c1, c2 = chi2_of(S12_0)
+    S12 = run(S12_0, torch.sum(torch.where(valid, c1 + c2, torch.zeros_like(c1))), valid, 5)
+    c1, c2 = chi2_of(S12)
+    ok = valid & (c1 < chi2_th) & (c2 < chi2_th)
+    S12 = run(S12, torch.sum(torch.where(ok, c1 + c2, torch.zeros_like(c1))), ok, iters)
+    c1, c2 = chi2_of(S12)
+    inl = valid & (c1 < chi2_th) & (c2 < chi2_th)
+    return Sim3Result(S12=S12, inliers=inl, n_inliers=torch.sum(inl))
+
+
+class PoseGraphResult(NamedTuple):
+    S: torch.Tensor      # [K, 4, 4] optimized Sim3 world->kf
+    cost: torch.Tensor
+
+
+def _graph_edges(S, edge_i, edge_j, edge_Sji, edge_valid, free, scale_mask):
+    """Per-edge residual r = log(Sji Si Sj^-1) [E,7] and masked Jacobians
+    wrt left perturbations of Si and Sj [E,7,7]."""
+    ei, ej = edge_i.long(), edge_j.long()
+    Si, Sj = S[ei], S[ej]
+
+    def f(di, dj):
+        return geo.sim3_log(edge_Sji @ (geo.sim3_exp(di * scale_mask) @ Si)
+                            @ geo.inv_T(geo.sim3_exp(dj * scale_mask) @ Sj))
+
+    r, (Ji, Jj) = _tangent_jacobian(f, 2, 7, S, batch=(ei.shape[0],))
+    ew = edge_valid.to(S.dtype)
+    Ji = Ji * (ew * free[ei].to(S.dtype))[:, None, None]
+    Jj = Jj * (ew * free[ej].to(S.dtype))[:, None, None]
+    return r, r * ew[:, None], Ji, Jj
+
+
+def _graph_cost(S, edge_i, edge_j, edge_Sji, edge_valid):
+    r = geo.sim3_log(edge_Sji @ S[edge_i.long()] @ geo.inv_T(S[edge_j.long()]))
+    return torch.sum(torch.where(edge_valid[:, None], r * r, torch.zeros_like(r)))
+
+
+def _graph_update(S, dx, free, cost, lam, edges):
+    S_new = geo.sim3_exp(dx) @ S
+    S_new = torch.where(free[:, None, None], S_new, S)
+    new_cost = _graph_cost(S_new, *edges)
+    accept = new_cost < cost
+    return (torch.where(accept, S_new, S), torch.where(accept, lam * 0.5, lam * 4.0),
+            torch.where(accept, new_cost, cost))
+
+
+def essential_graph_optimize(S0, kf_valid, kf_fixed, edge_i, edge_j, edge_Sji, edge_valid,
+                             fix_scale: bool = False,
+                             iters: int = C.ESSENTIAL_GRAPH_ITERS) -> PoseGraphResult:
+    """7-DoF pose graph (Optimizer::OptimizeEssentialGraph) with identity
+    information, damped Gauss-Newton on the dense [7K, 7K] normal matrix."""
+    Kn = S0.shape[0]
+    dev, dt = S0.device, S0.dtype
+    scale_mask = _scale_mask(fix_scale, S0)
+    free = kf_valid & (~kf_fixed)
+    edges = (edge_i, edge_j, edge_Sji, edge_valid)
+    ei, ej = edge_i.long(), edge_j.long()
+    # the four block scatters of H, and the two of b, as two segment sums
+    plan_H = SegmentPlan(torch.cat([ei * Kn + ei, ej * Kn + ej, ei * Kn + ej, ej * Kn + ei]),
+                         Kn * Kn)
+    plan_b = SegmentPlan(torch.cat([ei, ej]), Kn)
+    anchor = (~free).repeat_interleave(7)
+    anchor2 = anchor[:, None] | anchor[None, :]
+    eye = torch.eye(Kn * 7, dtype=dt, device=dev)
+    S, lam, cost = S0, torch.full((), 1e-4, dtype=dt, device=dev), _graph_cost(S0, *edges)
+    for _ in range(iters):
+        _, rw, Ji, Jj = _graph_edges(S, *edges, free, scale_mask)
+        blocks = torch.cat([torch.einsum("eki,ekj->eij", Ji, Ji),
+                            torch.einsum("eki,ekj->eij", Jj, Jj),
+                            torch.einsum("eki,ekj->eij", Ji, Jj),
+                            torch.einsum("eki,ekj->eij", Jj, Ji)])
+        H = plan_H.sum(blocks).reshape(Kn, Kn, 7, 7)
+        b = plan_b.sum(torch.cat([-torch.einsum("eki,ek->ei", Ji, rw),
+                                  -torch.einsum("eki,ek->ei", Jj, rw)]))
+        Hf = H.permute(0, 2, 1, 3).reshape(Kn * 7, Kn * 7)
+        Hf = Hf + torch.diag(lam * torch.clamp(torch.diagonal(Hf), min=1e-6) + 1e-8)
+        Hf = torch.where(anchor2, eye, Hf)
+        bf_ = torch.where(anchor, torch.zeros_like(b.reshape(-1)), b.reshape(-1))
+        dx = torch.linalg.solve_ex(Hf, bf_)[0].reshape(Kn, 7) * scale_mask
+        S, lam, cost = _graph_update(S, dx, free, cost, lam, edges)
+    return PoseGraphResult(S=S, cost=cost)
+
+
+def essential_graph_optimize_sparse(S0, kf_valid, kf_fixed, edge_i, edge_j, edge_Sji,
+                                    edge_valid, fix_scale: bool = False,
+                                    iters: int = C.ESSENTIAL_GRAPH_ITERS,
+                                    cg_iters: int = 100) -> PoseGraphResult:
+    """The same graph solved matrix-free: per-edge [7,7] blocks, H v by
+    segment sums, block-Jacobi preconditioned CG (large maps)."""
+    Kn = S0.shape[0]
+    dev, dt = S0.device, S0.dtype
+    scale_mask = _scale_mask(fix_scale, S0)
+    free = kf_valid & (~kf_fixed)
+    edges = (edge_i, edge_j, edge_Sji, edge_valid)
+    ei, ej = edge_i.long(), edge_j.long()
+    plan = SegmentPlan(torch.cat([ei, ej]), Kn)
+    eye7 = torch.eye(7, dtype=dt, device=dev)
+    S, lam, cost = S0, torch.full((), 1e-4, dtype=dt, device=dev), _graph_cost(S0, *edges)
+    for _ in range(iters):
+        _, rw, Ji, Jj = _graph_edges(S, *edges, free, scale_mask)
+        Bii = torch.einsum("eki,ekj->eij", Ji, Ji)
+        Bjj = torch.einsum("eki,ekj->eij", Jj, Jj)
+        Bij = torch.einsum("eki,ekj->eij", Ji, Jj)
+        b = plan.sum(torch.cat([-torch.einsum("eki,ek->ei", Ji, rw),
+                                -torch.einsum("eki,ek->ei", Jj, rw)]))
+        Hd = plan.sum(torch.cat([Bii, Bjj]))
+        dvec = torch.diagonal(Hd, dim1=-2, dim2=-1)
+        damp = lam * torch.clamp(dvec, min=1e-6) + 1e-8
+        Hd = Hd + torch.diag_embed(damp)
+        Hd = torch.where(free[:, None, None], Hd, eye7)
+        Minv = torch.linalg.inv_ex(Hd)[0]
+
+        def hv(v):
+            vi, vj = v[ei], v[ej]
+            ui = torch.einsum("eij,ej->ei", Bii, vi) + torch.einsum("eij,ej->ei", Bij, vj)
+            uj = torch.einsum("eji,ej->ei", Bij, vi) + torch.einsum("eij,ej->ei", Bjj, vj)
+            out = plan.sum(torch.cat([ui, uj])) + damp * v
+            return torch.where(free[:, None], out, v)
+
+        bf_ = torch.where(free[:, None], b, torch.zeros_like(b))
+        x = torch.zeros((Kn, 7), dtype=dt, device=dev)
+        rr = bf_
+        p = torch.einsum("kij,kj->ki", Minv, bf_)
+        rz = torch.sum(bf_ * p)
+        for _ in range(cg_iters):
+            Ap = hv(p)
+            denom = torch.sum(p * Ap)
+            alpha = torch.where(denom > 1e-12, rz / torch.clamp(denom, min=1e-12),
+                                torch.zeros_like(rz))
+            x = x + alpha * p
+            rr = rr - alpha * Ap
+            zz = torch.einsum("kij,kj->ki", Minv, rr)
+            rz_new = torch.sum(rr * zz)
+            beta = torch.where(rz > 1e-12, rz_new / torch.clamp(rz, min=1e-12),
+                               torch.zeros_like(rz))
+            p = zz + beta * p
+            rz = rz_new
+        S, lam, cost = _graph_update(S, x * scale_mask, free, cost, lam, edges)
+    return PoseGraphResult(S=S, cost=cost)
+
+
+# -- global BA: matrix-free Schur complement + preconditioned CG -------------
+
+def _gba_cost(prob: BAProblem, cam_T, pts, obs_ok, inv_sigma2_levels, K, bf, robust: bool):
+    r, _ = _residual_unified(cam_T[prob.obs_cam.long()], pts[prob.obs_pt.long()],
+                             prob.obs_uvr, K, bf)
+    inv_s2, comp = _edge_weights(prob.obs_oct, prob.obs_stereo, obs_ok, inv_sigma2_levels)
+    chi2 = _edge_chi2(r, inv_s2, comp)
+    if not robust:
+        return torch.sum(chi2)
+    delta = _huber_delta(prob.obs_stereo)
+    d2 = delta * delta
+    return torch.sum(torch.where(chi2 <= d2, chi2,
+                                 2.0 * delta * torch.sqrt(torch.clamp(chi2, min=1e-12)) - d2))
+
+
+class _GBAPlans(NamedTuple):
+    cam: SegmentPlan   # observation -> camera
+    pt: SegmentPlan    # observation -> point
+
+
+def _gba_plans(prob: BAProblem) -> _GBAPlans:
+    return _GBAPlans(SegmentPlan(prob.obs_cam, prob.cam_T.shape[0]),
+                     SegmentPlan(prob.obs_pt, prob.pts.shape[0]))
+
+
+def _assemble_blocks(prob: BAProblem, plans: _GBAPlans, cam_T, pts, obs_ok, inv_sigma2_levels,
+                     K, bf, robust: bool):
+    """Per-observation Jacobians and the block pieces of the normal
+    equations (the reference's `.at[].add` scatters as segment sums)."""
+    cam = prob.obs_cam.long()
+    r, Jc, Jp, _ = _edge_jacobians(cam_T[cam], pts[prob.obs_pt.long()], prob.obs_uvr, K, bf)
+    inv_s2, comp = _edge_weights(prob.obs_oct, prob.obs_stereo, obs_ok, inv_sigma2_levels)
+    chi2 = _edge_chi2(r, inv_s2, comp)
+    hw = geo.huber_weight(chi2, _huber_delta(prob.obs_stereo)) if robust \
+        else torch.ones_like(chi2)
+    cam_free = (~prob.cam_fixed) & prob.cam_valid
+    Jc = Jc * cam_free[cam].to(Jc.dtype)[:, None, None]
+    w = (inv_s2 * hw)[:, None] * comp
+    JcW = Jc * w[:, :, None]
+    JpW = Jp * w[:, :, None]
+    Hcc = plans.cam.sum(torch.einsum("oki,okj->oij", JcW, Jc))
+    bc = plans.cam.sum(-torch.einsum("oki,ok->oi", JcW, r))
+    Hpp = plans.pt.sum(torch.einsum("oki,okj->oij", JpW, Jp))
+    bp = plans.pt.sum(-torch.einsum("oki,ok->oi", JpW, r))
+    A = torch.einsum("oki,okj->oij", JcW, Jp)             # [O, 6, 3]
+    return Hcc, bc, Hpp, bp, A, cam_free
+
+
+def _gba_lm_step(prob: BAProblem, plans: _GBAPlans, inv_sigma2_levels, K, bf, carry, it: int,
+                 cg_iters: int = 40, robust_iters: int = 5):
+    """One damped-GN/Schur/PCG iteration of the global BA."""
+    cam_T, pts, lam, cost, obs_ok = carry
+    robust = it < robust_iters
+    dev, dt = cam_T.device, cam_T.dtype
+    Nc = cam_T.shape[0]
+    cam = prob.obs_cam.long()
+    ptl = prob.obs_pt.long()
+    Hcc, bc, Hpp, bp, A, cam_free = _assemble_blocks(prob, plans, cam_T, pts, obs_ok,
+                                                     inv_sigma2_levels, K, bf, robust)
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    tr6 = torch.diagonal(Hcc, dim1=-2, dim2=-1).sum(-1)
+    Hcc_d = Hcc + lam * eye6 * torch.clamp(tr6[:, None, None] / 6.0, min=1e-6)
+    Hcc_d = torch.where(cam_free[:, None, None], Hcc_d, eye6)
+    bc = torch.where(cam_free[:, None], bc, torch.zeros_like(bc))
+    tr3 = torch.diagonal(Hpp, dim1=-2, dim2=-1).sum(-1)
+    Hpp_inv = _inv33(Hpp + lam * eye3 * torch.clamp(tr3[:, None, None] / 3.0, min=1e-6))
+
+    def schur_matvec(x):
+        y = torch.einsum("cij,cj->ci", Hcc_d, x)
+        sp = plans.pt.sum(torch.einsum("oij,oi->oj", A, x[cam]))
+        v = torch.einsum("pij,pj->pi", Hpp_inv, sp)
+        y = y - plans.cam.sum(torch.einsum("oij,oj->oi", A, v[ptl]))
+        return torch.where(cam_free[:, None], y, x)
+
+    v0 = torch.einsum("pij,pj->pi", Hpp_inv, bp)
+    rhs = bc - plans.cam.sum(torch.einsum("oij,oj->oi", A, v0[ptl]))
+    rhs = torch.where(cam_free[:, None], rhs, torch.zeros_like(rhs))
+    Minv = torch.linalg.inv_ex(Hcc_d + 1e-8 * eye6)[0]
+    tiny = torch.full((), 1e-20, dtype=dt, device=dev)
+    x = torch.zeros((Nc, 6), dtype=dt, device=dev)
+    r_ = rhs
+    p = torch.einsum("cij,cj->ci", Minv, rhs)
+    rz = torch.sum(rhs * p)
+    for _ in range(cg_iters):
+        Ap = schur_matvec(p)
+        denom = torch.sum(p * Ap)
+        alpha = rz / torch.where(torch.abs(denom) < 1e-20, tiny, denom)
+        x = x + alpha * p
+        r_ = r_ - alpha * Ap
+        z = torch.einsum("cij,cj->ci", Minv, r_)
+        rz_new = torch.sum(r_ * z)
+        beta = rz_new / torch.where(torch.abs(rz) < 1e-20, tiny, rz)
+        p = z + beta * p
+        rz = rz_new
+    sp = plans.pt.sum(torch.einsum("oij,oi->oj", A, x[cam]))
+    dp = torch.einsum("pij,pj->pi", Hpp_inv, bp - sp)
+    cam_T_new = torch.where(cam_free[:, None, None], geo.se3_exp(x) @ cam_T, cam_T)
+    pts_new = torch.where(prob.pt_valid[:, None], pts + dp, pts)
+    new_cost = _gba_cost(prob, cam_T_new, pts_new, obs_ok, inv_sigma2_levels, K, bf, robust)
+    accept = new_cost < cost
+    return (torch.where(accept, cam_T_new, cam_T), torch.where(accept, pts_new, pts),
+            torch.where(accept, torch.clamp(lam * 0.5, min=1e-9), torch.clamp(lam * 4.0, max=1e6)),
+            torch.where(accept, new_cost, cost), obs_ok)
+
+
+def gba_init_carry(prob: BAProblem, inv_sigma2_levels, K, bf):
+    """Initial LM carry (cam_T, pts, lam, cost, obs_ok) of the chunked GBA."""
+    cost0 = _gba_cost(prob, prob.cam_T, prob.pts, prob.obs_valid, inv_sigma2_levels, K, bf,
+                      True)
+    lam = torch.full((), 1e-4, dtype=prob.cam_T.dtype, device=prob.cam_T.device)
+    return (prob.cam_T, prob.pts, lam, cost0, prob.obs_valid)
+
+
+def gba_chunk(prob: BAProblem, inv_sigma2_levels, carry, it0: int, K, bf, n_iters: int = 1,
+              cg_iters: int = 40, robust_iters: int = 5, plans: _GBAPlans = None):
+    """Advance the chunked GBA by n_iters LM iterations from `carry`: one
+    bounded piece of work the host interleaves with frames and can drop
+    (the reference's interruptible GBA thread). `plans` caches the
+    observation segment sort across chunks of one problem."""
+    plans = plans or _gba_plans(prob)
+    for k in range(n_iters):
+        carry = _gba_lm_step(prob, plans, inv_sigma2_levels, K, bf, carry, it0 + k, cg_iters,
+                             robust_iters)
+    return carry
+
+
+def gba_result(prob: BAProblem, inv_sigma2_levels, K, bf, carry) -> BAResult:
+    """Final chi2 classification of a chunked GBA carry."""
+    cam_T, pts, _, cost, _ = carry
     r, depth = _residual_unified(cam_T[prob.obs_cam.long()], pts[prob.obs_pt.long()],
                                  prob.obs_uvr, K, bf)
     inv_s2, comp = _edge_weights(prob.obs_oct, prob.obs_stereo, prob.obs_valid,

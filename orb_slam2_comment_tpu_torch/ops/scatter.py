@@ -68,23 +68,35 @@ def scatter_set(dst: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
     return out[:n]
 
 
+class SegmentPlan:
+    """A segment-sum over fixed segment ids, sorted once and applied to
+    many value arrays (the global BA sums over the same observation-to-
+    point map dozens of times per iteration)."""
+
+    def __init__(self, seg: torch.Tensor, n_seg: int):
+        seg = seg.reshape(-1).long()
+        ok = (seg >= 0) & (seg < n_seg)
+        seg = torch.where(ok, seg, n_seg)
+        self.n_seg = n_seg
+        self.order = torch.sort(seg, stable=True).indices
+        # integer index_add_ is exact in any order (bincount would sync on CUDA)
+        counts = torch.zeros(n_seg + 1, dtype=torch.long, device=seg.device)
+        counts = counts.index_add_(0, seg, torch.ones_like(seg))[:n_seg]
+        self.ends = torch.cumsum(counts, dim=0)
+        self.starts = self.ends - counts
+
+    def sum(self, vals: torch.Tensor) -> torch.Tensor:
+        # scan along the last (contiguous) axis: an outer-axis scan is ~100x
+        # slower on CUDA
+        v = vals.reshape((self.order.shape[0], -1))[self.order].double().T.contiguous()
+        csum = torch.cat([torch.zeros_like(v[:, :1]), torch.cumsum(v, dim=1)], dim=1)
+        out = (csum[:, self.ends] - csum[:, self.starts]).T
+        return out.to(vals.dtype).reshape((self.n_seg,) + vals.shape[1:])
+
+
 def segment_sum(vals: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
     """out[s] = sum of vals[i] with seg[i] == s, for s in [0, n_seg);
     entries with seg outside that range are dropped. Deterministic on
     CUDA: a stable sort by segment, an f64 prefix sum, differences at the
     segment boundaries."""
-    seg = seg.reshape(-1).long()
-    ok = (seg >= 0) & (seg < n_seg)
-    seg = torch.where(ok, seg, n_seg)
-    order = torch.sort(seg, stable=True).indices
-    # scan along the last (contiguous) axis: an outer-axis scan is ~100x
-    # slower on CUDA
-    v = vals.reshape((seg.shape[0], -1))[order].double().T.contiguous()
-    csum = torch.cat([torch.zeros_like(v[:, :1]), torch.cumsum(v, dim=1)], dim=1)
-    # integer index_add_ is exact in any order (bincount would sync on CUDA)
-    counts = torch.zeros(n_seg + 1, dtype=torch.long, device=seg.device)
-    counts = counts.index_add_(0, seg, torch.ones_like(seg))[:n_seg]
-    ends = torch.cumsum(counts, dim=0)
-    starts = ends - counts
-    out = (csum[:, ends] - csum[:, starts]).T
-    return out.to(vals.dtype).reshape((n_seg,) + vals.shape[1:])
+    return SegmentPlan(seg, n_seg).sum(vals)

@@ -1,8 +1,9 @@
 """The port's whole RGB-D slice against the JAX package on the CPU:
 System.track_rgbd over a forward synthetic sequence (the config of
-tests/test_determinism.py) in both packages, plus the port's determinism,
-its refusal of configurations outside the slice, and its independence from
-jax."""
+tests/test_determinism.py) in both packages, relocalization of a lost
+tracker, loop closing on the orbit of tests/test_loop_closing.py, plus the
+port's determinism, its refusal of configurations outside the slice, and
+its independence from jax."""
 
 import os
 import subprocess
@@ -89,17 +90,92 @@ def test_slice_is_deterministic(runs):
         np.testing.assert_array_equal(a[3], b[3])
 
 
+def test_relocalization_like_jax(runs):
+    """A tracker forced LOST (as tests/test_system.py:88-104 does) gets a
+    previously seen view: both packages relocalize it, translations within
+    1e-3 m and inliers within 5. The frame goes to the tracker directly:
+    System.track_rgbd would first auto-reset this map of <= 5 keyframes."""
+    from orb_slam2_comment_tpu.models.tracking import LOST
+
+    frames, (js, _), (ts, _), _ = runs
+    f = frames[8]
+    outs = []
+    for sys_ in (js, ts):
+        sys_.tracker.state = LOST
+        sys_.tracker.velocity = None
+        outs.append(sys_.tracker.track_rgbd_arrays(N_FRAMES + 1, 99.0, f["image"], f["depth"]))
+    jo, to = outs
+    assert jo.state == 1 and to.state == 1
+    dt = np.abs(np.asarray(to.Tcw)[:3, 3] - np.asarray(jo.Tcw)[:3, 3]).max()
+    assert dt <= 1e-3, dt
+    assert abs(to.n_inliers - jo.n_inliers) <= 5
+    assert np.linalg.norm(np.asarray(to.Tcw)[:3, 3] - f["Tcw_gt"][:3, 3]) < 0.02
+
+
+def test_orbit_closes_the_same_loop_as_jax():
+    """The orbit of tests/test_loop_closing.py at its widths (600 x 4,
+    80 KFs, 24576 points, fused tracking), default System with loop
+    closing: both packages close a loop on the same keyframe pair, lose
+    the same frames, and reach ATEs within 5 mm of each other."""
+    from orb_slam2_comment_tpu.models.system import System as JSystem
+    from orb_slam2_comment_tpu.utils import synthetic as syn
+    from orb_slam2_comment_tpu.utils.config import SlamConfig as JConfig
+    from orb_slam2_comment_tpu_torch.models.system import System as TSystem
+    from orb_slam2_comment_tpu_torch.utils.config import SlamConfig as TConfig
+    from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
+
+    kw = dict(_cfg_kw(), n_features=600, max_keyframes=80, max_points=24576)
+    scene = syn.make_scene(n_points=1800, seed=0, extent=(14.0, 8.0, 20.0))
+    base = syn.make_trajectory("orbit", n_frames=44)
+    frames = list(syn.render_sequence(scene, np.concatenate([base, base[:12]]),
+                                      K=syn.DEFAULT_K, depth=True))
+    res = []
+    for system in (JSystem(JConfig(**kw)), TSystem(TConfig(**kw), device="cpu")):
+        est, gt, lost = [], [], []
+        for i, f in enumerate(frames):
+            out = system.track_rgbd(f["image"], f["depth"], f["timestamp"])
+            if out.Tcw is None:
+                lost.append(i)
+            else:
+                est.append(np.asarray(out.Tcw, np.float64))
+                gt.append(f["Tcw_gt"])
+        system.shutdown()
+        assert system.n_loops >= 1
+        pair = tuple(system.loop_closer.loop_edges[0][:2])
+        res.append((pair, lost, ate_rmse(est, gt), system.tracker.n_kfs))
+    (jpair, jlost, jate, jk), (tpair, tlost, tate, tk) = res
+    assert tpair == jpair, (tpair, jpair)
+    assert tlost == jlost, (tlost, jlost)
+    assert abs(tate - jate) < 5e-3, (tate, jate)
+    assert tate < 0.10
+
+
 def test_slice_refuses_what_it_does_not_port():
     from orb_slam2_comment_tpu_torch.models.system import System
     from orb_slam2_comment_tpu_torch.utils.config import SlamConfig
 
     base = dict(_cfg_kw(), max_keyframes=8, max_points=1024)
     for kw in (dict(sensor="stereo"), dict(grow_capacity=True), dict(chunked_mapper=False),
-               dict(localization_only=True)):
+               dict(localization_only=True), dict(sensor="monocular")):
         with pytest.raises(NotImplementedError):
-            System(SlamConfig(**dict(base, **kw)), enable_loop_closing=False, device="cpu")
-    with pytest.raises(NotImplementedError):
-        System(SlamConfig(**base), device="cpu")   # loop closing on by default
+            System(SlamConfig(**dict(base, **kw)), device="cpu")
+
+
+def test_system_needs_cuda_unless_told_cpu():
+    """No silent CPU fallback: the default device is CUDA, and without one
+    System(cfg) raises; device="cpu" builds the default (loop-closing)
+    system."""
+    from orb_slam2_comment_tpu_torch.models.system import System
+    from orb_slam2_comment_tpu_torch.utils.config import SlamConfig
+
+    cfg = SlamConfig(**dict(_cfg_kw(), max_keyframes=8, max_points=1024))
+    if torch.cuda.is_available():
+        assert System(cfg).tracker.map.kf_pose.is_cuda
+    else:
+        with pytest.raises(RuntimeError):
+            System(cfg)
+    s = System(cfg, device="cpu")
+    assert s.loop_closer is not None and s.db is not None
 
 
 def test_port_never_imports_jax():
@@ -107,6 +183,10 @@ def test_port_never_imports_jax():
     code = ("import sys\n"
             "import orb_slam2_comment_tpu_torch.models.system\n"
             "import orb_slam2_comment_tpu_torch.ops.lm_cuda, orb_slam2_comment_tpu_torch.ops.lba_cuda\n"
+            "import orb_slam2_comment_tpu_torch.ops.rng, orb_slam2_comment_tpu_torch.ops.ransac\n"
+            "import orb_slam2_comment_tpu_torch.models.keyframe_database\n"
+            "import orb_slam2_comment_tpu_torch.models.relocalization\n"
+            "import orb_slam2_comment_tpu_torch.models.loop_closing\n"
             "import orb_slam2_comment_tpu_torch.utils.render, orb_slam2_comment_tpu_torch.utils.synthetic\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
             "assert 'orb_slam2_comment_tpu' not in sys.modules\n")
