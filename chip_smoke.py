@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the four hand-written CUDA kernels of orb_slam2_comment_tpu_torch and
-checks each against its plain PyTorch version on the card at the shapes of
-the RGB-D main path (K3 also as one batched launch of 5 poses, as
-relocalization runs it). Then it drives three paths of the default
+Builds the four hand-written CUDA kernels of orb_slam2_comment_tpu_torch
+(and, to time against, the earlier designs of K3 and K4 in prev_kernels/)
+and checks each against its plain PyTorch version on the card at the
+shapes of the RGB-D main path (K3 also as one batched launch of 5 poses,
+as relocalization runs it). Each kernel is timed three ways: the span of
+one call (`ms`), 100 calls back to back (`per_launch_ms`) and calls
+replayed from a CUDA graph (`device_ms`, no host dispatch), beside its
+plain version, its bound and, for K2, the one PyTorch call that computes
+the same function. Then it drives three paths of the default
 `System(cfg, device="cuda")` (loop closing on, as bench.py builds it), each
 with the launch counts set to 0 just before it and read just after:
 
@@ -31,6 +36,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -70,7 +76,8 @@ def read_counts():
 
 
 def cuda_ms(fn, reps=30, warm=3):
-    """Median CUDA-event time of one call, in ms."""
+    """Median CUDA-event span of one call, in ms (host dispatch included
+    where it is longer than the device work)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -84,6 +91,111 @@ def cuda_ms(fn, reps=30, warm=3):
         e.synchronize()
         times.append(s.elapsed_time(e))
     return float(np.median(times))
+
+
+def per_launch_ms(fn, n=100, reps=5, warm=3):
+    """CUDA-event span of n back-to-back calls divided by n, median of
+    reps, in ms: the card's time per call once the queue is full."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(n):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / n)
+    return float(np.median(times))
+
+
+def graph_ms(fn, n=20, reps=5):
+    """Device time per call: n calls captured in one CUDA graph and
+    replayed, so no host dispatch falls inside the timed span; median of
+    reps, in ms."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / n)
+    return float(np.median(times))
+
+
+# Published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
+# tensor cores, and HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def bound(nbytes, nops):
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the f32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=int(nbytes), bound_ops=int(nops))
+
+
+def timed(kernel, plain, plain_reps=10):
+    """ms (one call), per_launch_ms (100 back to back), device_ms (calls
+    replayed from a CUDA graph) and plain_ms (one call of the plain
+    version)."""
+    return dict(ms=cuda_ms(kernel), per_launch_ms=per_launch_ms(kernel),
+                device_ms=graph_ms(kernel), plain_ms=cuda_ms(plain, reps=plain_reps, warm=1))
+
+
+def against_earlier(name, new, old, check):
+    """A redesigned kernel against its earlier design (prev_kernels/) on the
+    same inputs: check(earlier result) holds the earlier one to the same
+    tolerance; then the span of one call of each, in turns (earlier, new,
+    new, earlier), and each one's back-to-back time."""
+    check(old())
+    spans = [cuda_ms(old), cuda_ms(new), cuda_ms(new), cuda_ms(old)]
+    back = [per_launch_ms(old), per_launch_ms(new)]
+    dev = [graph_ms(old), graph_ms(new)]
+    print(f"# redesign {name}: span of one call in turns (earlier, new, new, earlier) "
+          + " / ".join(f"{t:.4f}" for t in spans)
+          + f" ms; back to back: earlier {back[0]:.4f}, new {back[1]:.4f} ms; from a CUDA "
+          f"graph: earlier {dev[0]:.4f}, new {dev[1]:.4f} ms", flush=True)
+    return dict(earlier_ms=float(np.mean([spans[0], spans[3]])),
+                earlier_per_launch_ms=back[0], earlier_device_ms=dev[0], turns_ms=spans)
+
+
+# Operation counts behind the bounds (f32 add, mul, min, max, compare and
+# select count one each).
+# K1 per pixel: 16 ring differences; bright and dark: 16 arcs x 8 mins;
+# 2 x 15 maxes over the arcs and their max; the border select; the 3x3
+# NMS: 8 neighbours x 2 compares.
+K1_OPS_PER_PX = 16 + 2 * 16 * 8 + 2 * 15 + 1 + 1 + 8 * 2
+# K3 per edge and LM iteration: at the current pose, transform (18),
+# projection and residuals (12), chi2 (8), Huber weight (4), Jacobian rows
+# (20), the 21 + 6 normal-equation sums (27 x 8); at the candidate pose
+# transform, projection, residuals, chi2, robust cost and its sum (45).
+K3_OPS_PER_EDGE_ITER = 18 + 12 + 8 + 4 + 20 + 27 * 8 + 45
+# K4 per active observation: linearisation (residual, chi2, Huber, Jc, Jp:
+# 100), weighted rows (27), Hcc lower triangle and bc (21 x 6 + 6 x 6), Hpp
+# lower triangle and bp (6 x 6 + 3 x 6), E (18 x 6).
+K4_OPS_PER_OBS = 100 + 27 + 21 * 6 + 6 * 6 + 6 * 6 + 3 * 6 + 18 * 6
 
 
 def bench_config():
@@ -137,9 +249,11 @@ def check_k1_k2(cfg, frame, dev):
                                  f"{(a != b).sum().item()} pixels")
         err1 = max(err1, (a - b).abs().max().item())
         scores.append(a)
-    k1 = dict(max_abs_err=err1,
-              ms=cuda_ms(lambda: [orb.fast_nms(lv) for lv in pyr]),
-              plain_ms=cuda_ms(lambda: [orb.fast_nms_plain(lv) for lv in pyr], reps=10))
+    px = sum(lv.numel() for lv in pyr)
+    k1 = dict(max_abs_err=err1, library_ms=None,
+              **timed(lambda: [orb.fast_nms(lv) for lv in pyr],
+                      lambda: [orb.fast_nms_plain(lv) for lv in pyr]),
+              **bound(2 * 4 * px, K1_OPS_PER_PX * px))
     budgets = ocfg.level_budgets()
     xy_all = torch.cat([orb._select_keypoints(s, budgets[i], ocfg.cell, ocfg.min_th)[0]
                         for i, s in enumerate(scores)])
@@ -147,12 +261,33 @@ def check_k1_k2(cfg, frame, dev):
     a, b = orb.gather_patches(padded, lyx), orb.gather_patches_plain(padded, lyx)
     if not torch.equal(a, b):
         raise AssertionError("K2 differs from its plain version")
+    # the library call: one advanced-indexing gather with prebuilt indices
+    L, Hp, Wp = padded.shape
+    P = a.shape[1]
+    lv_i = torch.clamp(lyx[:, 0].long(), 0, L - 1)[:, None, None]
+    yy = (torch.clamp(lyx[:, 1].long(), 0, Hp - P)[:, None]
+          + torch.arange(P, device=dev)[None, :])[:, :, None]
+    xx = (torch.clamp(lyx[:, 2].long(), 0, Wp - P)[:, None]
+          + torch.arange(P, device=dev)[None, :])[:, None, :]
+    if not torch.equal(padded[lv_i, yy, xx], a):
+        raise AssertionError("K2's library call differs from the kernel")
+    # bytes: each stack pixel some patch covers read once, the patches
+    # written once, the start table read once
+    covered = torch.zeros_like(padded, dtype=torch.bool)
+    covered[lv_i, yy, xx] = True
     k2 = dict(max_abs_err=(a - b).abs().max().item(),
-              ms=cuda_ms(lambda: orb.gather_patches(padded, lyx)),
-              plain_ms=cuda_ms(lambda: orb.gather_patches_plain(padded, lyx)))
-    print(f"# K1 fast_nms: 8 levels bit-exact; {k1['ms']:.4f} ms/frame "
-          f"(plain {k1['plain_ms']:.4f}); K2 gather_patches: {lyx.shape[0]} patches "
-          f"bit-exact; {k2['ms']:.4f} ms (plain {k2['plain_ms']:.4f})", flush=True)
+              library_ms=per_launch_ms(lambda: padded[lv_i, yy, xx]),
+              **timed(lambda: orb.gather_patches(padded, lyx),
+                      lambda: orb.gather_patches_plain(padded, lyx), plain_reps=30),
+              **bound(4 * int(covered.sum()) + 4 * a.numel() + 4 * lyx.numel(), 0))
+    print(f"# K1 fast_nms: 8 levels bit-exact; {k1['ms']:.4f} ms/frame, "
+          f"{k1['per_launch_ms']:.4f} per frame back to back, {k1['device_ms']:.4f} from a graph "
+          f"(plain {k1['plain_ms']:.4f}, "
+          f"bound {k1['bound_ms']:.5f}); K2 gather_patches: {lyx.shape[0]} patches "
+          f"bit-exact; {k2['ms']:.4f} ms, {k2['per_launch_ms']:.4f} per launch, "
+          f"{k2['device_ms']:.4f} from a graph (plain "
+          f"{k2['plain_ms']:.4f}, library {k2['library_ms']:.4f}, bound "
+          f"{k2['bound_ms']:.5f})", flush=True)
     return k1, k2
 
 
@@ -177,7 +312,20 @@ def k3_problem(cfg, r):
                   r.random(N) < 0.9, (1.0 / 1.44 ** np.arange(8)).astype(np.float32)]
 
 
+def k3_bound(args, cfg):
+    """Bytes: X, obs (12 B each), octave (4), stereo and valid (1 each) per
+    edge, the start pose and level table in; pose, inlier mask and count
+    out. Operations: 40 LM iterations over this run's valid edges."""
+    T0, Xw, valid = args[0], args[1], args[5]
+    B = T0.shape[0] if T0.dim() == 3 else 1
+    n = Xw.shape[-2]
+    iters = 4 * 10
+    nbytes = B * (30 * n + 64 + 32 + 64 + n + 4)
+    return bound(nbytes, K3_OPS_PER_EDGE_ITER * iters * int(valid.sum()))
+
+
 def check_k3(cfg, dev):
+    import prev_kernels
     from orb_slam2_comment_tpu_torch.ops import lm_cuda
 
     r = np.random.default_rng(0)
@@ -192,11 +340,22 @@ def check_k3(cfg, dev):
     if not (dT < 5e-3 and dn <= 5):
         raise AssertionError(f"K3 disagrees: |dT|={dT} |dinl|={dn}")
     gt_err = (ker.Tcw - torch.from_numpy(T_gt).to(dev)).abs().max().item()
-    res = dict(max_abs_err=dT,
-               ms=cuda_ms(lambda: lm_cuda.pose_optimize_lm(*args, K, bf)),
-               plain_ms=cuda_ms(lambda: lm_cuda.pose_optimize_plain(*args, K, bf), reps=10))
+    res = dict(max_abs_err=dT, library_ms=None,
+               **timed(lambda: lm_cuda.pose_optimize_lm(*args, K, bf),
+                       lambda: lm_cuda.pose_optimize_plain(*args, K, bf)),
+               **k3_bound(args, cfg))
+    def close_to_plain(o):
+        eT, en = (o.Tcw - pl.Tcw).abs().max().item(), abs(int(o.n_inliers) - int(pl.n_inliers))
+        if not (eT < 5e-3 and en <= 5):
+            raise AssertionError(f"earlier K3 disagrees: |dT|={eT} |dinl|={en}")
+
+    res.update(against_earlier("K3 pose_lm", lambda: lm_cuda.pose_optimize_lm(*args, K, bf),
+                               lambda: prev_kernels.pose_optimize_prev(*args, K, bf),
+                               close_to_plain))
     print(f"# K3 pose_lm: N={N} |dT|={dT:.2e} |dinl|={dn} (inliers {int(ker.n_inliers)}, "
-          f"pose vs truth {gt_err:.2e}); {res['ms']:.4f} ms (plain {res['plain_ms']:.4f})",
+          f"pose vs truth {gt_err:.2e}); {res['ms']:.4f} ms, {res['device_ms']:.4f} from a graph, "
+          f"{res['per_launch_ms']:.4f} per "
+          f"launch back to back (plain {res['plain_ms']:.4f}, bound {res['bound_ms']:.6f})",
           flush=True)
     return res
 
@@ -207,6 +366,7 @@ def check_k3_batched(cfg, dev, B=5):
     invalid (a disabled candidate). The batched launch must equal B single
     launches bit for bit, and each pose its plain version within K3's
     tolerances (tests/test_tpu_parity.py:63-66)."""
+    import prev_kernels
     from orb_slam2_comment_tpu_torch.ops import lm_cuda
 
     r = np.random.default_rng(1)
@@ -237,31 +397,49 @@ def check_k3_batched(cfg, dev, B=5):
         dn = max(dn, abs(int(bat.n_inliers[b]) - int(pl.n_inliers)))
     if not (dT < 5e-3 and dn <= 5):
         raise AssertionError(f"K3 batched disagrees with plain: |dT|={dT} |dinl|={dn}")
+    # relocalization broadcasts the frame's observations over the batch
+    shared = [torch.from_numpy(a).to(dev).expand((B,) + a.shape) for a in (obs, octv, stereo)]
+    bro = lm_cuda.pose_optimize_lm(args[0], args[1], *shared, args[5], inv, K, bf)
+    if not all(torch.equal(a, b) for a, b in zip(bro, bat)):
+        raise AssertionError("K3 batched over broadcast inputs differs from stacked inputs")
 
     def singles(fn):
         for b in range(B):
             fn(*[a[b] for a in args], inv, K, bf)
 
-    res = dict(max_abs_err=dT,
+    res = dict(max_abs_err=dT, library_ms=None,
                ms=cuda_ms(lambda: lm_cuda.pose_optimize_lm(*args, inv, K, bf)),
-               plain_ms=cuda_ms(lambda: singles(lm_cuda.pose_optimize_plain), reps=3, warm=1))
+               per_launch_ms=per_launch_ms(lambda: lm_cuda.pose_optimize_lm(*args, inv, K, bf)),
+               device_ms=graph_ms(lambda: lm_cuda.pose_optimize_lm(*args, inv, K, bf)),
+               plain_ms=cuda_ms(lambda: singles(lm_cuda.pose_optimize_plain), reps=3, warm=1),
+               **k3_bound(args, cfg))
     single_ms = cuda_ms(lambda: singles(lm_cuda.pose_optimize_lm))
+
+    def close_to_batched(o):
+        eT = (o.Tcw - bat.Tcw).abs().max().item()
+        en = (o.n_inliers - bat.n_inliers).abs().max().item()
+        if not (eT < 5e-3 and en <= 5):
+            raise AssertionError(f"earlier batched K3 disagrees: |dT|={eT} |dinl|={en}")
+
+    res.update(against_earlier("K3b pose_lm batched",
+                               lambda: lm_cuda.pose_optimize_lm(*args, inv, K, bf),
+                               lambda: prev_kernels.pose_optimize_prev(*args, inv, K, bf),
+                               close_to_batched))
     print(f"# K3 batched pose_lm: B={B} x N={N}, equal to {B} single launches bit for bit; "
           f"vs plain |dT|={dT:.2e} |dinl|={dn} (inliers {bat.n_inliers.tolist()}); "
-          f"{res['ms']:.4f} ms batched vs {single_ms:.4f} ms for {B} single launches "
-          f"(plain {res['plain_ms']:.4f})", flush=True)
+          f"{res['ms']:.4f} ms batched ({res['per_launch_ms']:.4f} back to back, "
+          f"{res['device_ms']:.4f} from a graph) vs "
+          f"{single_ms:.4f} ms for {B} single launches (plain {res['plain_ms']:.4f}, "
+          f"bound {res['bound_ms']:.6f})", flush=True)
     return res
 
 
-def check_k4(dev):
-    from orb_slam2_comment_tpu_torch.ops import geometry as geo, lba_cuda, optim
+def k4_fields(r, NC, NP, N_PER, F, K, BF):
+    """One camera-major local-BA window (numpy fields of optim.BAProblem):
+    random point ids, so cameras may observe a point more than once."""
+    from orb_slam2_comment_tpu_torch.ops import geometry as geo
 
-    NC, NP, N_PER, F = 32, 2048, 1000, 16
     O = NC * N_PER
-    K = (500.0, 500.0, 320.0, 240.0)
-    BF = 50.0
-    inv_s2 = torch.tensor([1.0 / (1.2 ** (2 * l)) for l in range(8)], dtype=torch.float32)
-    r = np.random.default_rng(0)
     pts = r.uniform(-6, 6, (NP, 3)).astype(np.float32) + np.float32([0, 0, 10])
     cam_T = np.tile(np.eye(4, dtype=np.float32), (NC, 1, 1))
     cam_T[:, 0, 3] = -np.linspace(0, 2, NC).astype(np.float32)
@@ -272,28 +450,56 @@ def check_k4(dev):
     cam_fixed = np.zeros(NC, bool)
     cam_fixed[F:] = True
     cam_fixed[3] = True
-    fields = dict(
+    return dict(
         cam_T=cam_T, cam_fixed=cam_fixed, cam_valid=np.ones(NC, bool), pts=pts,
         pt_valid=np.ones(NP, bool), obs_cam=np.repeat(np.arange(NC, dtype=np.int32), N_PER),
         obs_pt=obs_pt.reshape(-1), obs_uvr=uvr.astype(np.float32),
         obs_oct=r.integers(0, 4, O).astype(np.int32), obs_stereo=r.random(O) < 0.7,
         obs_valid=r.random(O) < 0.95)
+
+
+def check_k4(dev):
+    """K4 at the main path's window (32 cameras, 16 free, 2048 points, 1000
+    observations per camera) and on a dense window (64 points seen ~100
+    times each, so a point's observations span several warp-wide chunks):
+    each field within 1e-3 relative of the plain version, robust and not,
+    and a rerun bit-identical."""
+    import prev_kernels
+    from orb_slam2_comment_tpu_torch.ops import lba_cuda, optim
+
+    NC, NP, N_PER, F = 32, 2048, 1000, 16
+    O = NC * N_PER
+    K = (500.0, 500.0, 320.0, 240.0)
+    BF = 50.0
+    inv_s2 = torch.tensor([1.0 / (1.2 ** (2 * l)) for l in range(8)], dtype=torch.float32)
+    inv_dev = inv_s2.to(dev)
+    r = np.random.default_rng(0)
+    fields = k4_fields(r, NC, NP, N_PER, F, K, BF)
+    dense = k4_fields(r, NC, 64, 200, F, K, BF)
+    worst = 0.0
+    for flds in (fields, dense):
+        pr = optim.BAProblem(**{k: torch.from_numpy(v).to(dev) for k, v in flds.items()})
+        pp = lba_cuda.prep_problem(pr, inv_dev, F)
+        for robust in (True, False):
+            sk = lba_cuda.build_system(pp, pr.cam_T, pr.pts, pr.obs_valid, robust, K, BF)
+            sp = optim.build_system_plain(pr, inv_dev, F, pr.cam_T, pr.pts, pr.obs_valid,
+                                          robust, K, BF)
+            again = lba_cuda.build_system(pp, pr.cam_T, pr.pts, pr.obs_valid, robust, K, BF)
+            for fld in sp._fields:
+                a = getattr(sp, fld).double()
+                b = getattr(sk, fld).double()
+                err = ((a - b).abs().max() / max(a.abs().max().item(), 1e-6)).item()
+                worst = max(worst, err)
+                if not err < 1e-3:
+                    raise AssertionError(f"K4 field {fld} (robust={robust}, Np="
+                                         f"{pr.pts.shape[0]}) rel err {err}")
+                if not torch.equal(getattr(sk, fld), getattr(again, fld)):
+                    raise AssertionError(f"K4 field {fld}: a rerun differs")
     prob = optim.BAProblem(**{k: torch.from_numpy(v).to(dev) for k, v in fields.items()})
     prob_cpu = optim.BAProblem(**{k: torch.from_numpy(v) for k, v in fields.items()})
-    inv_dev = inv_s2.to(dev)
     prep = lba_cuda.prep_problem(prob, inv_dev, F)
-    worst = 0.0
-    for robust in (True, False):
-        sk = lba_cuda.build_system(prep, prob.cam_T, prob.pts, prob.obs_valid, robust, K, BF)
-        sp = optim.build_system_plain(prob, inv_dev, F, prob.cam_T, prob.pts,
-                                      prob.obs_valid, robust, K, BF)
-        for fld in sp._fields:
-            a = getattr(sp, fld).double()
-            b = getattr(sk, fld).double()
-            err = ((a - b).abs().max() / max(a.abs().max().item(), 1e-6)).item()
-            worst = max(worst, err)
-            if not err < 1e-3:
-                raise AssertionError(f"K4 field {fld} (robust={robust}) rel err {err}")
+    sp = optim.build_system_plain(prob, inv_dev, F, prob.cam_T, prob.pts, prob.obs_valid,
+                                  True, K, BF)
     # five LM iterations: kernel path on the card vs the plain path (CPU)
     ck = optim.lba_iterate(prob, inv_dev, optim.lba_init(prob, inv_dev, K, BF), K, BF, 5,
                            robust=True, n_free=F)
@@ -303,16 +509,35 @@ def check_k4(dev):
     if not (abs(c_k - c_p) / max(abs(c_p), 1.0) < 1e-3 and int(ck[4]) == int(cp[4])):
         raise AssertionError(f"K4 lba_iterate(5): cost {c_k} vs {c_p}, "
                              f"inliers {int(ck[4])} vs {int(cp[4])}")
+    # bytes: cam_T, pts, and per observation uvr, point id, octave,
+    # stereo and ok flags in; Hcc, bc, Hpp, bp, E, cost and n_in out
+    nbytes = (NC * 66 + NP * 12 + O * (12 + 4 + 4 + 1 + 1)
+              + F * 42 * 4 + NP * 12 * 4 + F * 18 * NP * 4 + 8)
     res = dict(
-        max_abs_err=worst,
-        ms=cuda_ms(lambda: lba_cuda.build_system(prep, prob.cam_T, prob.pts, prob.obs_valid,
-                                                 True, K, BF)),
-        plain_ms=cuda_ms(lambda: optim.build_system_plain(prob, inv_dev, F, prob.cam_T,
-                                                          prob.pts, prob.obs_valid, True, K,
-                                                          BF), reps=10))
+        max_abs_err=worst, library_ms=None,
+        **timed(lambda: lba_cuda.build_system(prep, prob.cam_T, prob.pts, prob.obs_valid,
+                                              True, K, BF),
+                lambda: optim.build_system_plain(prob, inv_dev, F, prob.cam_T, prob.pts,
+                                                 prob.obs_valid, True, K, BF)),
+        **bound(nbytes, K4_OPS_PER_OBS * int(prob.obs_valid.sum())))
+
+    def close_to_plain(o):
+        for fld in sp._fields:
+            a, b = getattr(sp, fld).double(), getattr(o, fld).double()
+            if not ((a - b).abs().max() / max(a.abs().max().item(), 1e-6)).item() < 1e-3:
+                raise AssertionError(f"earlier K4 field {fld} disagrees")
+
+    pprev = prev_kernels.prep_prev(prob, inv_dev, F)
+    res.update(against_earlier(
+        "K4 lba_build",
+        lambda: lba_cuda.build_system(prep, prob.cam_T, prob.pts, prob.obs_valid, True, K, BF),
+        lambda: prev_kernels.build_system_prev(pprev, prob.cam_T, prob.pts, prob.obs_valid,
+                                               True, K, BF), close_to_plain))
     print(f"# K4 lba_build: {NC} cams x {NP} pts x {O} obs; worst field rel err "
           f"{worst:.2e}; lba_iterate(5) cost {c_k:.6g} vs plain {c_p:.6g}, inliers "
-          f"{int(ck[4])}; {res['ms']:.4f} ms (plain {res['plain_ms']:.4f})", flush=True)
+          f"{int(ck[4])}; {res['ms']:.4f} ms, {res['device_ms']:.4f} from a graph, "
+          f"{res['per_launch_ms']:.4f} per launch back "
+          f"to back (plain {res['plain_ms']:.4f}, bound {res['bound_ms']:.6f})", flush=True)
     return res
 
 
@@ -410,7 +635,8 @@ def main_path(cfg, frames, dev, profile):
 
     n_warm = 8
     dt = np.asarray(secs[n_warm:]) * 1e3
-    return dict(frames=len(frames), timed=len(dt), fps=len(dt) / (dt.sum() / 1e3),
+    return dict(frames=len(frames), frames_run=len(frames) + n_rerun, timed=len(dt),
+                fps=len(dt) / (dt.sum() / 1e3),
                 p50_ms=float(np.percentile(dt, 50)), p90_ms=float(np.percentile(dt, 90)),
                 p99_ms=float(np.percentile(dt, 99)), max_ms=float(dt.max()),
                 n_kfs=n_kfs, ate_m=ate, kf_frames=int(sum(r[2] for r in recs)),
@@ -594,9 +820,19 @@ def main():
     print(f"# device {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
+    import prev_kernels
+
     t0 = time.perf_counter()
-    _build.library()
+    with ThreadPoolExecutor(2) as pool:   # both builds at once, one nvcc per source
+        builds = [pool.submit(_build.library), pool.submit(prev_kernels.library)]
+        for b in builds:
+            b.result()
     print(f"# kernels built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    log = (_build.library_path().parent / "nvcc.log").read_text().splitlines()
+    for i, line in enumerate(log):
+        if "bytes stack frame" in line:
+            print(f"# ptxas {log[i - 1].split('for')[-1].strip()}: {line.strip()} "
+                  f"{log[i + 1].strip() if i + 1 < len(log) else ''}", flush=True)
 
     cfg = bench_config()
     t0 = time.perf_counter()
@@ -613,8 +849,8 @@ def main():
 
     per_path = {}
     k1_k4 = (0, 1, 2, 3)
-    drive("main", lambda: main_path(cfg, frames[:args.frames], dev, args.profile), k1_k4,
-          per_path)
+    main_frames = drive("main", lambda: main_path(cfg, frames[:args.frames], dev, args.profile),
+                        k1_k4, per_path)["frames_run"]
     drive("reloc", lambda: reloc_path(cfg, frames, dev), k1_k4 + (4,), per_path)
     drive("loop", lambda: loop_path(cfg, orbit, dev), k1_k4, per_path)
     print("# launches per path " + json.dumps(
@@ -625,8 +861,8 @@ def main():
     for k, ((name, src, rep), res) in enumerate(zip(KERNEL_ROWS, checks)):
         rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
                          launches=sum(c[k] for c in per_path.values()),
-                         max_abs_err=res["max_abs_err"], ms=res["ms"],
-                         plain_ms=res["plain_ms"]))
+                         launches_per_main_frame=per_path["main"][k] / main_frames,
+                         **res))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels.
 
-All sources under `csrc/*.cu` compile with one `nvcc` call into one shared
-library with a plain C interface, loaded with ctypes. The library lands in
+Each source under `csrc/*.cu` compiles with its own `nvcc`, all in
+parallel, and the objects link into one shared library with a plain C
+interface, loaded with ctypes. The library lands in
 `build/torch_kernels/` at the repository root, named by a hash of the
 sources, so a checkout builds it at first use and reuses it afterwards.
 
@@ -32,13 +33,14 @@ _SIGNATURES = {
     "slam_fast_nms": [_P, _P, _I, _I, _I, _P],
     # padded, lyx, out, n, L, Hp, Wp, stream
     "slam_gather_patches": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # X, obs, invs2, comp, valid, delta, chi2th, pose0, pose_out, inl, B, n,
-    # fx, fy, cx, cy, bf, rounds, iters, robust_rounds, stream
-    "slam_pose_lm": [_P] * 10 + [_I] * 2 + [_F] * 5 + [_I] * 3 + [_P],
-    # cam_T, pts, uvr, wbase, urmask, obs_pt, cam_free, perm, seg,
-    # cam_out, pp_out, e_out, Nc, Np, N_per, F, robust,
+    # Tcw0, X, obs, octave, stereo, valid, invs2_levels, Tcw_out, inliers,
+    # n_inliers, B, n, n_levels, 5 batch strides, fx, fy, cx, cy, bf, rounds,
+    # iters, robust_rounds, stream
+    "slam_pose_lm": [_P] * 10 + [_I] * 8 + [_F] * 5 + [_I] * 3 + [_P],
+    # cam_T, pts, uvr, inv_s2, stereo, ok, obs_pt, cam_free, perm, seg, sys,
+    # n_in, scratch, tickets, Nc, Np, N_per, F, chunks, robust,
     # fx, fy, cx, cy, bf, stream
-    "slam_lba_build": [_P] * 12 + [_I] * 5 + [_F] * 5 + [_P],
+    "slam_lba_build": [_P] * 14 + [_I] * 6 + [_F] * 5 + [_P],
 }
 
 
@@ -53,13 +55,45 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def library_path() -> Path:
-    sources = sorted(_SRC.glob("*.cu")) + sorted(_SRC.glob("*.cuh"))
+def library_path(src_dir: Path = _SRC, stem: str = "libslam_kernels") -> Path:
+    """The library built from src_dir's sources, named by their hash."""
+    sources = sorted(src_dir.glob("*.cu")) + sorted(src_dir.glob("*.cuh"))
     h = hashlib.sha1()
     for s in sources:
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    return _BUILD / f"libslam_kernels_{h.hexdigest()[:12]}.so"
+    return _BUILD / f"{stem}_{h.hexdigest()[:12]}.so"
+
+
+def compile_library(sources, so: Path, log: Path):
+    """One nvcc per source, all started together, then one link into `so`;
+    the compilers' output (`-Xptxas -v`) goes to `log`."""
+    objdir = so.parent / f"{so.stem}.{os.getpid()}.obj"
+    objdir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for src in sources:
+        obj = objdir / (src.stem + ".o")
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c", "-o", str(obj), str(src)]
+        jobs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    out_log, failed = [], []
+    for src, _, proc in jobs:
+        out = proc.communicate()[0]
+        out_log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out[-3000:]}")
+    log.write_text("".join(out_log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in jobs]],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, so)
+    shutil.rmtree(objdir, ignore_errors=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,19 +102,7 @@ def library() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", str(tmp),
-            *[str(s) for s in sorted(_SRC.glob("*.cu"))],
-        ]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (_BUILD / "nvcc.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        os.replace(tmp, so)
+        compile_library(sorted(_SRC.glob("*.cu")), so, _BUILD / "nvcc.log")
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -114,3 +136,16 @@ def require(t, name: str, dtype, shape=None):
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def batch_stride(t, name: str, dtype, shape) -> int:
+    """Validate a per-item kernel argument [B, ...] on any device: dtype,
+    shape, the trailing axes packed. The batch axis may be broadcast
+    (stride 0). Returns the batch stride in elements."""
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t[0].is_contiguous():
+        raise ValueError(f"{name}: expected packed trailing axes, got strides {t.stride()}")
+    return t.stride(0) if t.shape[0] > 1 else 0

@@ -16,6 +16,7 @@ import torch
 from orb_slam2_comment_tpu_torch import constants as C
 from orb_slam2_comment_tpu_torch.models import map_state as ms
 from orb_slam2_comment_tpu_torch.ops import bow
+from orb_slam2_comment_tpu_torch.utils.config import resolve_device
 
 # vocabularies beyond this word count use the inverted file (the
 # reference's design point; its ORBvoc has ~1M words)
@@ -35,9 +36,9 @@ def scores_dense(db_bow, db_valid, query):
 class KeyFrameDatabase:
     """Per-KF BoW vectors (dense or sparse) plus feature word/group tables."""
 
-    def __init__(self, voc: bow.Vocabulary, max_kfs: int, n_feat: int, device="cpu"):
+    def __init__(self, voc: bow.Vocabulary, max_kfs: int, n_feat: int, device=None):
         self.voc = voc
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "KeyFrameDatabase")
         kw = dict(device=self.device)
         self.sparse = voc.n_words > SPARSE_W_THRESHOLD
         if self.sparse:
@@ -58,7 +59,7 @@ class KeyFrameDatabase:
                 if getattr(self, f) is not None}
 
     @classmethod
-    def from_numpy(cls, voc: bow.Vocabulary, arrays, device="cpu") -> "KeyFrameDatabase":
+    def from_numpy(cls, voc: bow.Vocabulary, arrays, device=None) -> "KeyFrameDatabase":
         """From the reference database's arrays (`bow` or `sp_word`/`sp_w`,
         `groups`, `words`, `valid`)."""
         groups = np.asarray(arrays["groups"])

@@ -27,11 +27,11 @@ from orb_slam2_comment_tpu_torch.models.tracking import LOST, Tracker, check_sli
 from orb_slam2_comment_tpu_torch.ops import bow as bow_mod
 from orb_slam2_comment_tpu_torch.ops import geometry as geo
 from orb_slam2_comment_tpu_torch.ops import optim, ransac
-from orb_slam2_comment_tpu_torch.utils.config import SlamConfig
+from orb_slam2_comment_tpu_torch.utils.config import SlamConfig, resolve_device
 
-# the reference's packaged vocabulary, read as data (np.load)
-VOC_ASSET = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "orb_slam2_comment_tpu", "assets", "voc_synth.npz")
+# the port's copy of the reference's packaged vocabulary (byte-equal)
+VOC_ASSET = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "assets", "voc_synth.npz")
 
 
 def _warm_up(cfg: SlamConfig, device):
@@ -60,10 +60,7 @@ class System:
                  vocabulary_path: Optional[str] = None,
                  enable_loop_closing: Optional[bool] = None, device=None):
         check_slice(cfg)
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("System: no CUDA device; pass device='cpu' to run the "
-                               "plain PyTorch versions on the CPU")
+        self.device = resolve_device(device, "System")
         self.cfg = cfg
         _warm_up(cfg, self.device)
         if vocabulary is None:

@@ -40,7 +40,7 @@ from orb_slam2_comment_tpu_torch.models.map_state import MapState
 from orb_slam2_comment_tpu_torch.ops import bow, matching, optim
 from orb_slam2_comment_tpu_torch.ops import geometry as geo
 from orb_slam2_comment_tpu_torch.ops.scatter import const, scalar, scatter_set, top_k
-from orb_slam2_comment_tpu_torch.utils.config import MONOCULAR, RGBD, SlamConfig
+from orb_slam2_comment_tpu_torch.utils.config import MONOCULAR, RGBD, SlamConfig, resolve_device
 
 NO_IMAGES_YET = -1
 NOT_INITIALIZED = 0
@@ -551,10 +551,10 @@ class Tracker:
     """Synchronous host tracker: `_stereo_initialization` on the first
     frame, then one `_frame_step_rgbd` per frame, resolved at once."""
 
-    def __init__(self, cfg: SlamConfig, device="cpu"):
+    def __init__(self, cfg: SlamConfig, device=None):
         check_slice(cfg)
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "Tracker")
         self.map = ms.empty_map(cfg.max_keyframes, cfg.max_points, self._n_slots(),
                                 self.device)
         self.n_kfs = 0

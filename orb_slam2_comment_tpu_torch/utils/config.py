@@ -10,11 +10,23 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
+import torch
+
 from orb_slam2_comment_tpu_torch import constants as C
 
 MONOCULAR = "monocular"
 STEREO = "stereo"
 RGBD = "rgbd"
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """The device of a public class: CUDA unless the caller names another,
+    and no silent fallback to the CPU when there is no card."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' to run the "
+                           "plain PyTorch versions on the CPU")
+    return dev
 
 
 class ORBConfig(NamedTuple):

@@ -144,7 +144,7 @@ def test_database_candidates_match_jax(vocs, sparse, monkeypatch):
     jm, kf_desc, pt_desc, obs = _db_map(r)
     tm = tms.from_numpy({k: np.asarray(v) for k, v in jm._asdict().items()})
     jd = jdb.KeyFrameDatabase(jv, 16, 256)
-    td = tdb.KeyFrameDatabase(tv, 16, 256)
+    td = tdb.KeyFrameDatabase(tv, 16, 256, device="cpu")
     assert jd.sparse == td.sparse == sparse
     for k in range(12):
         jd.add(k, jm.kf_desc[k], jm.kf_feat_valid[k])
@@ -174,5 +174,5 @@ def test_database_candidates_match_jax(vocs, sparse, monkeypatch):
     td2 = tdb.KeyFrameDatabase.from_numpy(
         tv, {f: np.asarray(getattr(jd, f)) for f in ("bow", "sp_word", "sp_w", "groups",
                                                     "words", "valid")
-             if getattr(jd, f, None) is not None})
+             if getattr(jd, f, None) is not None}, device="cpu")
     assert td2.detect_loop_candidates(tm, 11, 0.0) == jd.detect_loop_candidates(jm, 11, 0.0)

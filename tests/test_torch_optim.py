@@ -187,3 +187,74 @@ def test_inv33_matches_jax():
     M[:4] = 0.0   # empty blocks take the damping path
     np.testing.assert_allclose(topt._inv33(torch.from_numpy(M)).numpy(),
                                np.asarray(jopt._inv33(jnp.asarray(M))), rtol=1e-5, atol=1e-4)
+
+
+def test_lba_prep_tables_match_numpy():
+    """K4's per-window tables (the kernel reads them as they are) against a
+    numpy construction: level weights, point ids clipped into the window,
+    observations sorted stably by point with the invalid ones last, segment
+    starts, free cameras; the completion counters start at 0."""
+    from orb_slam2_comment_tpu_torch.ops import lba_cuda, optim as topt
+
+    fields, F = _ba_problem(NC=6, NP=40, N_PER=30, F=3, seed=2)
+    fields["obs_pt"][::7] = 45   # padding slots clipped onto the last point
+    fields["cam_valid"][4] = False
+    tp = topt.BAProblem(**{k: torch.from_numpy(v) for k, v in fields.items()})
+    inv = np.asarray([1.0 / (1.2 ** (2 * l)) for l in range(8)], np.float32)
+    prep = lba_cuda.prep_problem(tp, torch.from_numpy(inv), F)
+    NC, NP, O = 6, 40, 180
+    obs_pt = np.clip(fields["obs_pt"], 0, NP - 1)
+    key = np.where(fields["obs_valid"], obs_pt, NP)
+    perm = np.argsort(key, kind="stable")
+    seg = np.concatenate([[0], np.cumsum(np.bincount(key, minlength=NP + 1)[:NP])])
+    np.testing.assert_array_equal(prep.perm.numpy(), perm)
+    np.testing.assert_array_equal(prep.seg.numpy(), seg)
+    np.testing.assert_array_equal(prep.obs_pt.numpy(), obs_pt)
+    np.testing.assert_array_equal(prep.inv_s2.numpy(), inv[np.clip(fields["obs_oct"], 0, 7)])
+    np.testing.assert_array_equal(prep.cam_free.numpy(),
+                                  ~fields["cam_fixed"] & fields["cam_valid"])
+    np.testing.assert_array_equal(prep.stereo.view(torch.uint8).numpy(),
+                                  fields["obs_stereo"].astype(np.uint8))
+    np.testing.assert_array_equal(prep.uvr.numpy(), fields["obs_uvr"])
+    assert prep.N_per == 30 and prep.F == F
+    assert prep.scratch.shape == (NC * lba_cuda.CHUNKS * 32 + 2 * NC,)
+    np.testing.assert_array_equal(prep.tickets.numpy(), np.zeros(NC + 1, np.int32))
+    # each point's segment lists its valid observations, camera-major
+    for p in (0, 17, NP - 1):
+        obs = perm[seg[p]:seg[p + 1]]
+        assert np.all(obs_pt[obs] == p) and np.all(fields["obs_valid"][obs])
+        assert np.all(np.diff(obs // 30) >= 0)
+    assert O == len(perm)
+
+
+@pytest.mark.parametrize("layout", ["single", "stacked", "broadcast"])
+def test_pose_lm_launch_layout(layout):
+    """K3's launch arguments as the wrapper checks them on any device: the
+    batch strides the kernel walks (0 for inputs broadcast over the
+    batch), the bool flags read as bytes, and a wrong dtype or an unpacked
+    row refused."""
+    from orb_slam2_comment_tpu_torch.ops import lm_cuda
+
+    p = _pose_problem(7, N=50)
+    B, n = 3, 50
+    T0 = torch.from_numpy(np.tile(p["T0"], (B, 1, 1)))
+    per_edge = [torch.from_numpy(p[k]) for k in ("Xw", "obs", "octave", "stereo")]
+    valid = torch.from_numpy(np.tile(p["valid"], (B, 1)))
+    if layout == "single":
+        args = [T0[:1]] + [t[None] for t in per_edge] + [valid[:1]]
+        want = [0] * 5
+    elif layout == "stacked":
+        args = [T0] + [t.expand((B,) + t.shape).contiguous() for t in per_edge] + [valid]
+        want = [n * 3, n * 3, n, n, n]
+    else:
+        args = [T0] + [t.expand((B,) + t.shape) for t in per_edge] + [valid]
+        want = [0, 0, 0, 0, n]
+    inv = torch.from_numpy(p["inv_s2"])
+    got_B, got_n, strides = lm_cuda.launch_layout(*args, inv)
+    assert (got_B, got_n, strides) == (args[0].shape[0], n, want)
+    np.testing.assert_array_equal(args[4].view(torch.uint8)[0].numpy(),
+                                  p["stereo"].astype(np.uint8))
+    for i, bad in ((1, args[1].double()), (3, args[3].long()), (4, args[4].to(torch.uint8)),
+                   (2, args[2].transpose(-1, -2).contiguous().transpose(-1, -2))):
+        with pytest.raises(ValueError):
+            lm_cuda.launch_layout(*args[:i], bad, *args[i + 1:], inv)

@@ -178,19 +178,136 @@ def test_system_needs_cuda_unless_told_cpu():
     assert s.loop_closer is not None and s.db is not None
 
 
+@pytest.mark.parametrize("which", ["tracker", "database"])
+def test_public_classes_need_cuda_unless_told_cpu(which):
+    """Tracker and KeyFrameDatabase default to the card as System does:
+    without one they raise, and device="cpu" builds them on the CPU."""
+    from orb_slam2_comment_tpu_torch.models.keyframe_database import KeyFrameDatabase
+    from orb_slam2_comment_tpu_torch.models.system import VOC_ASSET
+    from orb_slam2_comment_tpu_torch.models.tracking import Tracker
+    from orb_slam2_comment_tpu_torch.ops import bow
+    from orb_slam2_comment_tpu_torch.utils.config import SlamConfig
+
+    cfg = SlamConfig(**dict(_cfg_kw(), max_keyframes=8, max_points=1024))
+    if which == "tracker":
+        def build(**kw):
+            return Tracker(cfg, **kw).map.kf_pose
+    else:
+        voc = bow.load_vocabulary(VOC_ASSET)
+
+        def build(**kw):
+            return KeyFrameDatabase(voc, 8, 64, **kw).valid
+    if torch.cuda.is_available():
+        assert build().is_cuda
+    else:
+        with pytest.raises(RuntimeError):
+            build()
+    assert build(device="cpu").device.type == "cpu"
+
+
 def test_port_never_imports_jax():
+    """In a fresh process, import every module of the port, chip_smoke and
+    its prev_kernels, load the vocabulary and render a frame: no jax module is loaded, no
+    loaded module's file and no opened file lies in the JAX package."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = ("import sys\n"
-            "import orb_slam2_comment_tpu_torch.models.system\n"
-            "import orb_slam2_comment_tpu_torch.ops.lm_cuda, orb_slam2_comment_tpu_torch.ops.lba_cuda\n"
-            "import orb_slam2_comment_tpu_torch.ops.rng, orb_slam2_comment_tpu_torch.ops.ransac\n"
-            "import orb_slam2_comment_tpu_torch.models.keyframe_database\n"
-            "import orb_slam2_comment_tpu_torch.models.relocalization\n"
-            "import orb_slam2_comment_tpu_torch.models.loop_closing\n"
-            "import orb_slam2_comment_tpu_torch.utils.render, orb_slam2_comment_tpu_torch.utils.synthetic\n"
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
-            "assert 'orb_slam2_comment_tpu' not in sys.modules\n")
+    code = (
+        "import importlib, os, pkgutil, sys\n"
+        "ref = os.path.join(os.getcwd(), 'orb_slam2_comment_tpu') + os.sep\n"
+        "opened = []\n"
+        "def hook(ev, args):\n"
+        "    if ev == 'open' and isinstance(args[0], str) and "
+        "os.path.abspath(args[0]).startswith(ref):\n"
+        "        opened.append(args[0])\n"
+        "sys.addaudithook(hook)\n"
+        "import orb_slam2_comment_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke, prev_kernels\n"
+        "from orb_slam2_comment_tpu_torch.models.system import VOC_ASSET\n"
+        "from orb_slam2_comment_tpu_torch.ops import bow\n"
+        "from orb_slam2_comment_tpu_torch.utils import synthetic as syn\n"
+        "bow.load_vocabulary(VOC_ASSET)\n"
+        "scene = syn.make_scene(n_points=50, seed=0)\n"
+        "syn.render(scene, syn.make_trajectory('forward', 2)[1], syn.DEFAULT_K, (48, 64))\n"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "assert 'orb_slam2_comment_tpu' not in sys.modules\n"
+        "files = [getattr(m, '__file__', None) or '' for m in list(sys.modules.values())]\n"
+        "bad = [f for f in files if os.path.abspath(f).startswith(ref)]\n"
+        "assert not bad, bad\n"
+        "assert not opened, opened\n"
+        "print(len(files))\n")
     env = dict(os.environ, PYTHONPATH=root)
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _same_constants():
+    from orb_slam2_comment_tpu import constants as J
+    from orb_slam2_comment_tpu_torch import constants as T
+
+    names = sorted(k for k in vars(T) if k.isupper())
+    assert names == sorted(k for k in vars(J) if k.isupper())
+    for k in names:
+        assert getattr(T, k) == getattr(J, k) and type(getattr(T, k)) is type(getattr(J, k)), k
+
+
+def _same_frames():
+    from orb_slam2_comment_tpu.utils import synthetic as J
+    from orb_slam2_comment_tpu_torch.utils import synthetic as T
+
+    for name in ("DEFAULT_K", "DEFAULT_HW", "DEFAULT_BASELINE"):
+        assert getattr(T, name) == getattr(J, name)
+    hw = (96, 128)
+    for kind in ("forward", "orbit", "circle_translate", "jitter"):
+        np.testing.assert_array_equal(T.make_trajectory(kind, 3, seed=2),
+                                      J.make_trajectory(kind, 3, seed=2))
+    js, ts = J.make_scene(n_points=150, seed=1), T.make_scene(n_points=150, seed=1)
+    for f in ("points", "e1", "e2", "normal", "half_m", "texture"):
+        np.testing.assert_array_equal(getattr(ts, f), getattr(js, f))
+    poses = J.make_trajectory("forward", 3, step=0.05)
+    for kw in (dict(depth=True), dict(stereo=True)):
+        for a, b in zip(T.render_sequence(ts, poses, hw=hw, **kw),
+                        J.render_sequence(js, poses, hw=hw, **kw)):
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k])
+
+
+def _same_trajectory_eval():
+    from orb_slam2_comment_tpu.utils import synthetic as syn
+    from orb_slam2_comment_tpu.utils import trajectory as J
+    from orb_slam2_comment_tpu_torch.utils import trajectory as T
+
+    r = np.random.default_rng(3)
+    gt = syn.make_trajectory("orbit", 12)
+    est = gt.astype(np.float64)
+    est[:, :3, 3] += r.normal(0, 0.01, (12, 3))
+    for align in ("first", "umeyama"):
+        assert T.ate_rmse(est, gt, align) == J.ate_rmse(est, gt, align)
+    src, dst = r.normal(size=(20, 3)), r.normal(size=(20, 3))
+    for scale in (False, True):
+        a, (s, R, t) = T.umeyama_align(src, dst, scale)
+        b, (s2, R2, t2) = J.umeyama_align(src, dst, scale)
+        np.testing.assert_array_equal(a, b)
+        assert s == s2
+        np.testing.assert_array_equal(R, R2)
+        np.testing.assert_array_equal(t, t2)
+
+
+def _same_vocabulary():
+    import orb_slam2_comment_tpu
+    from orb_slam2_comment_tpu_torch.models.system import VOC_ASSET
+
+    ref = os.path.join(os.path.dirname(orb_slam2_comment_tpu.__file__), "assets",
+                       "voc_synth.npz")
+    with open(VOC_ASSET, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
+
+
+@pytest.mark.parametrize("check", [_same_constants, _same_frames, _same_trajectory_eval,
+                                   _same_vocabulary], ids=lambda f: f.__name__[6:])
+def test_port_copies_equal_jax(check):
+    """The port's own copies of the JAX package's numpy-only modules and of
+    its vocabulary stay equal to the originals."""
+    check()
