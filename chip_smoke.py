@@ -2,10 +2,11 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the four hand-written CUDA kernels of orb_slam2_comment_tpu_torch
-(and, to time against, the earlier designs of K3 and K4 in prev_kernels/)
-and checks each against its plain PyTorch version on the card at the
-shapes of the RGB-D main path (K3 also as one batched launch of 5 poses,
-as relocalization runs it). Each kernel is timed three ways: the span of
+(and, to time against, the earlier designs of K1, K3 and K4 in
+prev_kernels/) and checks each against its plain PyTorch version on the
+card at the shapes of the RGB-D main path (K1 as one launch over the 8
+levels of a 480x640 and of a 376x1241 frame, K3 also as one batched
+launch of 5 poses, as relocalization runs it). Each kernel is timed three ways: the span of
 one call (`ms`), 100 calls back to back (`per_launch_ms`) and calls
 replayed from a CUDA graph (`device_ms`, no host dispatch), beside its
 plain version, its bound and, for K2, the one PyTorch call that computes
@@ -61,7 +62,7 @@ def counters():
     order."""
     from orb_slam2_comment_tpu_torch.ops import lba_cuda, lm_cuda, orb
 
-    return [(orb.fast_nms, "launches"), (orb.gather_patches, "launches"),
+    return [(orb.fast_nms_levels, "launches"), (orb.gather_patches, "launches"),
             (lm_cuda.pose_optimize_lm, "launches"), (lba_cuda.build_system, "launches"),
             (lm_cuda.pose_optimize_lm, "batched_launches")]
 
@@ -144,13 +145,28 @@ def graph_ms(fn, n=20, reps=5):
 # tensor cores, and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# f32 minimum and maximum issue at 64 results per SM per clock on compute
+# capability 9.0, f32 add at 128 (CUDA C++ Programming Guide, the
+# arithmetic-instruction throughput table: "compare, minimum, maximum" and
+# "32-bit floating-point add, multiply, multiply-add").
+MINMAX_PER_SM_CLOCK = 64
 
 
-def bound(nbytes, nops):
+def minmax_rate():
+    """f32 min/max the card can issue per second: every SM at the card's
+    maximum SM clock (nvidia-smi clocks.max.sm)."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * MINMAX_PER_SM_CLOCK * float(mhz) * 1e6
+
+
+def bound(nbytes, nops, rate=PEAK_F32_FLOPS):
     """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the f32 rate."""
+    memory rate and operations over their rate (f32 FLOP/s unless given)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = nops / PEAK_F32_FLOPS * 1e3
+    t_ops = nops / rate * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bound_bytes=int(nbytes), bound_ops=int(nops))
@@ -183,10 +199,12 @@ def against_earlier(name, new, old, check):
 
 # Operation counts behind the bounds (f32 add, mul, min, max, compare and
 # select count one each).
-# K1 per pixel: 16 ring differences; bright and dark: 16 arcs x 8 mins;
-# 2 x 15 maxes over the arcs and their max; the border select; the 3x3
-# NMS: 8 neighbours x 2 compares.
-K1_OPS_PER_PX = 16 + 2 * 16 * 8 + 2 * 15 + 1 + 1 + 8 * 2
+# K1 per pixel inside the mask (the only pixels it scores), in f32 min/max
+# issue slots: the doubling over 2, 4 and 8 ring elements for both
+# polarities (2 x 3 x 16), min9/max9 (2 x 16), the extrema over the 16
+# arcs (2 x 15) and their max, the mask select, the 8 NMS compares and the
+# keep select; the 16 ring differences issue at twice that rate (8 slots).
+K1_SLOTS_PER_PX = 2 * 3 * 16 + 2 * 16 + 2 * 15 + 1 + 1 + 8 + 1 + 16 // 2
 # K3 per edge and LM iteration: at the current pose, transform (18),
 # projection and residuals (12), chi2 (8), Huber weight (4), Jacobian rows
 # (20), the 21 + 6 normal-equation sums (27 x 8); at the candidate pose
@@ -230,34 +248,80 @@ def render_frames(n_frames):
 # kernel vs plain, at the main path's shapes
 # ---------------------------------------------------------------------------
 
+def k1_inputs(img, ocfg):
+    """One frame's pyramid (the extraction's resizes), its zero-padded
+    level stack and the level sizes."""
+    from orb_slam2_comment_tpu_torch.ops import orb
+
+    h, w = img.shape
+    sizes = ocfg.level_sizes(h, w)
+    pyr = [img]
+    for lvl in range(1, ocfg.n_levels):
+        pyr.append(orb._resize_level(pyr[-1], sizes[lvl]).contiguous())
+    return pyr, orb._level_stack(pyr, (h, w)), sizes
+
+
+def check_k1_levels(pyr, scores, what):
+    """K1's scores equal the plain version on every level under
+    torch.equal (the sign of a zero may differ) and are 0 outside each
+    level's mask. Returns the largest absolute difference."""
+    from orb_slam2_comment_tpu_torch import constants as C
+    from orb_slam2_comment_tpu_torch.ops import orb
+
+    m = C.EDGE_THRESHOLD
+    err = 0.0
+    for lv, a in zip(pyr, scores, strict=True):
+        b = orb.fast_nms_plain(lv)
+        err = max(err, (a - b).abs().max().item())
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} differs at level {tuple(lv.shape)}: "
+                                 f"{(a != b).sum().item()} pixels")
+        outside = torch.ones_like(a, dtype=torch.bool)
+        outside[m:-m, m:-m] = False
+        if (a[outside] != 0).any():
+            raise AssertionError(f"{what}: nonzero score outside the mask at level "
+                                 f"{tuple(lv.shape)}")
+    return err
+
+
+def kitti_frame():
+    """bench.py's scene seen at the KITTI image shape, 376x1241, uint8."""
+    from orb_slam2_comment_tpu_torch.utils import synthetic as syn
+
+    scene = syn.make_scene(n_points=3200, seed=0, extent=(8.0, 5.0, 8.0), z_near=1.0)
+    img = syn.render(scene, np.eye(4, dtype=np.float32), (718.856, 718.856, 607.19, 185.22),
+                     (376, 1241))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
 def check_k1_k2(cfg, frame, dev):
+    import prev_kernels
+    from orb_slam2_comment_tpu_torch import constants as C
     from orb_slam2_comment_tpu_torch.ops import orb
 
     ocfg = cfg.orb
     h, w = cfg.height, cfg.width
     img = torch.from_numpy(frame["image"]).to(dev).float()
-    sizes = ocfg.level_sizes(h, w)
-    pyr = [img]
-    for lvl in range(1, ocfg.n_levels):
-        pyr.append(orb._resize_level(pyr[-1], sizes[lvl]).contiguous())
-    err1 = 0.0
-    scores = []
-    for lv in pyr:
-        a, b = orb.fast_nms(lv), orb.fast_nms_plain(lv)
-        if not torch.equal(a, b):
-            raise AssertionError(f"K1 differs at level {tuple(lv.shape)}: "
-                                 f"{(a != b).sum().item()} pixels")
-        err1 = max(err1, (a - b).abs().max().item())
-        scores.append(a)
+    pyr, stack, sizes = k1_inputs(img, ocfg)
+    scores = orb.fast_nms_levels(stack, sizes)
+    err = check_k1_levels(pyr, scores, "K1")
+    kpyr, kstack, ksizes = k1_inputs(torch.from_numpy(kitti_frame()).to(dev).float(), ocfg)
+    check_k1_levels(kpyr, orb.fast_nms_levels(kstack, ksizes), "K1 at 376x1241")
     px = sum(lv.numel() for lv in pyr)
-    k1 = dict(max_abs_err=err1, library_ms=None,
-              **timed(lambda: [orb.fast_nms(lv) for lv in pyr],
+    m = 2 * C.EDGE_THRESHOLD
+    inside = sum((lh - m) * (lw - m) for lh, lw in sizes)
+    rate = minmax_rate()
+    k1 = dict(max_abs_err=err, library_ms=None, minmax_per_s=rate,
+              **timed(lambda: orb.fast_nms_levels(stack, sizes),
                       lambda: [orb.fast_nms_plain(lv) for lv in pyr]),
-              **bound(2 * 4 * px, K1_OPS_PER_PX * px))
+              **bound(2 * 4 * px, K1_SLOTS_PER_PX * inside, rate))
+    k1.update(against_earlier("K1 fast_nms", lambda: orb.fast_nms_levels(stack, sizes),
+                              lambda: [prev_kernels.fast_nms_prev(lv) for lv in pyr],
+                              lambda o: check_k1_levels(pyr, o, "earlier K1")))
     budgets = ocfg.level_budgets()
     xy_all = torch.cat([orb._select_keypoints(s, budgets[i], ocfg.cell, ocfg.min_th)[0]
                         for i, s in enumerate(scores)])
-    padded, lyx = orb._patch_inputs(pyr, xy_all, ocfg, (h, w))
+    padded, lyx = stack, orb._patch_starts(xy_all, ocfg, (h, w))
     a, b = orb.gather_patches(padded, lyx), orb.gather_patches_plain(padded, lyx)
     if not torch.equal(a, b):
         raise AssertionError("K2 differs from its plain version")
@@ -280,10 +344,11 @@ def check_k1_k2(cfg, frame, dev):
               **timed(lambda: orb.gather_patches(padded, lyx),
                       lambda: orb.gather_patches_plain(padded, lyx), plain_reps=30),
               **bound(4 * int(covered.sum()) + 4 * a.numel() + 4 * lyx.numel(), 0))
-    print(f"# K1 fast_nms: 8 levels bit-exact; {k1['ms']:.4f} ms/frame, "
-          f"{k1['per_launch_ms']:.4f} per frame back to back, {k1['device_ms']:.4f} from a graph "
-          f"(plain {k1['plain_ms']:.4f}, "
-          f"bound {k1['bound_ms']:.5f}); K2 gather_patches: {lyx.shape[0]} patches "
+    print(f"# K1 fast_nms: one launch, 8 levels bit-exact at 480x640 and 376x1241, 0 outside "
+          f"the mask; {k1['ms']:.4f} ms/frame, {k1['per_launch_ms']:.4f} per frame back to "
+          f"back, {k1['device_ms']:.4f} from a graph (plain {k1['plain_ms']:.4f}, "
+          f"bound {k1['bound_ms']:.5f} by {k1['bound_by']}: {k1['bound_ops']} min/max slots "
+          f"at {rate:.4g}/s, {k1['bound_bytes']} B); K2 gather_patches: {lyx.shape[0]} patches "
           f"bit-exact; {k2['ms']:.4f} ms, {k2['per_launch_ms']:.4f} per launch, "
           f"{k2['device_ms']:.4f} from a graph (plain "
           f"{k2['plain_ms']:.4f}, library {k2['library_ms']:.4f}, bound "
@@ -833,6 +898,8 @@ def main():
         if "bytes stack frame" in line:
             print(f"# ptxas {log[i - 1].split('for')[-1].strip()}: {line.strip()} "
                   f"{log[i + 1].strip() if i + 1 < len(log) else ''}", flush=True)
+            if [int(t) for t in line.split() if t.isdigit()] != [0, 0, 0]:
+                raise AssertionError(f"ptxas: a stack frame or spills: {line.strip()}")
 
     cfg = bench_config()
     t0 = time.perf_counter()
@@ -851,6 +918,9 @@ def main():
     k1_k4 = (0, 1, 2, 3)
     main_frames = drive("main", lambda: main_path(cfg, frames[:args.frames], dev, args.profile),
                         k1_k4, per_path)["frames_run"]
+    if per_path["main"][0] != main_frames:
+        raise AssertionError(f"K1 launched {per_path['main'][0]} times over {main_frames} "
+                             "main frames, not once per frame")
     drive("reloc", lambda: reloc_path(cfg, frames, dev), k1_k4 + (4,), per_path)
     drive("loop", lambda: loop_path(cfg, orbit, dev), k1_k4, per_path)
     print("# launches per path " + json.dumps(

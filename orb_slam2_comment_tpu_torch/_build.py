@@ -29,8 +29,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # C signatures, checked against csrc/*.cu
 _SIGNATURES = {
-    # img, out, h, w, margin, stream
-    "slam_fast_nms": [_P, _P, _I, _I, _I, _P],
+    # stack, out, host launch table (ops/orb.py::k1_table), stream
+    "slam_fast_nms": [_P, _P, _P, _P],
     # padded, lyx, out, n, L, Hp, Wp, stream
     "slam_gather_patches": [_P, _P, _P, _I, _I, _I, _I, _P],
     # Tcw0, X, obs, octave, stereo, valid, invs2_levels, Tcw_out, inliers,

@@ -1,12 +1,15 @@
 """Oriented multi-scale FAST + rotated BRIEF descriptors — the port of
 `orb_slam2_comment_tpu/ops/orb.py::_extract_impl` and its parts.
 
-Per level: bilinear resize (two matmuls), dense FAST score + border mask +
-3x3 NMS (kernel K1, `fast_nms`), bucketed top-k keypoint selection. Then one
-48x48 patch per keypoint from the padded level stack (kernel K2,
-`gather_patches`), and one [N, 2304] x [2304, Q*256+2] product with the
-static BRIEF/moment matrix S gives the IC angle and the descriptor bits of
-all Q rotation buckets; each keypoint keeps the bucket of its angle.
+The pyramid: each level a bilinear resize of the one above (two matmuls),
+all written once into a zero-padded level stack. One launch of kernel K1
+(`fast_nms_levels`) scores and suppresses every level of the stack (dense
+FAST score + border mask + 3x3 NMS), then a bucketed top-k selects each
+level's keypoints. One 48x48 patch per keypoint comes from the same stack
+(kernel K2, `gather_patches`), and one [N, 2304] x [2304, Q*256+2]
+product with the static BRIEF/moment matrix S gives the IC angle and the
+descriptor bits of all Q rotation buckets; each keypoint keeps the bucket
+of its angle.
 
 Descriptors are [N, 8] int32 bit patterns of the reference's uint32 words.
 """
@@ -25,7 +28,7 @@ from orb_slam2_comment_tpu_torch import constants as C
 from orb_slam2_comment_tpu_torch.ops.scatter import top_k
 from orb_slam2_comment_tpu_torch.utils.config import ORBConfig
 
-__all__ = ["ORBConfig", "FrameFeatures", "extract", "fast_nms", "gather_patches"]
+__all__ = ["ORBConfig", "FrameFeatures", "extract", "fast_nms_levels", "gather_patches"]
 
 # FAST 9-16 ring offsets (dx, dy), Bresenham circle of radius 3
 _RING = [
@@ -161,24 +164,70 @@ def fast_nms_plain(img: torch.Tensor) -> torch.Tensor:
     return _nms3(score)
 
 
-def fast_nms(img: torch.Tensor) -> torch.Tensor:
-    """K1 wrapper: [H, W] f32 level image -> masked, NMS-ed FAST score.
-    CPU tensors take the plain version; CUDA tensors launch
-    csrc/fast_nms.cu."""
-    if not img.is_cuda:
-        return fast_nms_plain(img)
-    h, w = img.shape
-    _build.require(img, "img", torch.float32, (h, w))
-    out = torch.empty_like(img)
-    lib = _build.library()
-    _build.check(lib.slam_fast_nms(_build.ptr(img), _build.ptr(out), h, w,
-                                   C.EDGE_THRESHOLD, _build.stream_of(img)),
+K1_TILE = (30, 30)      # output tile (rows, columns) of csrc/fast_nms.cu
+_K1_MAX_LEVELS = 16
+K1_HEAD = 7             # scalars before the per-level arrays of k1_table
+
+
+@functools.lru_cache(maxsize=None)
+def k1_table(sizes, Hp: int, Wp: int) -> np.ndarray:
+    """K1's launch table for a level stack [L, Hp, Wp] holding levels of
+    `sizes` ((h, w) per level, a tuple) at offset _PATCH_PAD: n_levels,
+    Hp, Wp, pad, margin, tile rows, tile columns, then per level h, w,
+    tiles across, output offset, and the prefix of tile counts (L + 1).
+    Tiles are numbered level by level, row-major within a level. Raises if
+    a level does not fit in the stack."""
+    pd, m = _PATCH_PAD, C.EDGE_THRESHOLD
+    th, tw = K1_TILE
+    if not 1 <= len(sizes) <= _K1_MAX_LEVELS:
+        raise ValueError(f"K1 takes 1-{_K1_MAX_LEVELS} levels, got {len(sizes)}")
+    for h, w in sizes:
+        if h + pd > Hp or w + pd > Wp or min(h, w) <= 2 * m:
+            raise ValueError(f"level {h}x{w} does not fit a {Hp}x{Wp} stack at pad {pd} "
+                             f"or has no pixel inside the {m}-px border")
+    hs, ws = [h for h, _ in sizes], [w for _, w in sizes]
+    tiles_x = [-(-w // tw) for w in ws]
+    n_tiles = [-(-h // th) * tx for h, tx in zip(hs, tiles_x)]
+    out_off = np.cumsum([0] + [h * w for h, w in sizes])[:-1].tolist()
+    start = np.cumsum([0] + n_tiles).tolist()
+    table = np.asarray([len(sizes), Hp, Wp, pd, m, th, tw, *hs, *ws, *tiles_x, *out_off,
+                        *start], np.int32)
+    table.flags.writeable = False
+    return table
+
+
+def fast_nms_levels(stack: torch.Tensor, sizes) -> list:
+    """K1 wrapper over the zero-padded level stack [L, Hp, Wp] f32 of
+    `_level_stack` (level l at [l, pad:pad + h_l, pad:pad + w_l]).
+    Returns the masked, NMS-ed FAST score [h_l, w_l] of each level: for a
+    CUDA stack contiguous views of one flat buffer written by one launch
+    of csrc/fast_nms.cu; for a CPU stack the plain version of each
+    level's view."""
+    sizes = tuple(map(tuple, sizes))
+    L, Hp, Wp = stack.shape
+    if L != len(sizes):
+        raise ValueError(f"stack has {L} levels, sizes {len(sizes)}")
+    table = k1_table(sizes, Hp, Wp)
+    pd = _PATCH_PAD
+    if not stack.is_cuda:
+        return [fast_nms_plain(stack[l, pd:pd + h, pd:pd + w]) for l, (h, w) in enumerate(sizes)]
+    _build.require(stack, "stack", torch.float32, (L, Hp, Wp))
+    out = torch.empty(sum(h * w for h, w in sizes), dtype=torch.float32, device=stack.device)
+    _build.check(_build.library().slam_fast_nms(_build.ptr(stack), _build.ptr(out),
+                                                table.ctypes.data, _build.stream_of(stack)),
                  "slam_fast_nms")
-    fast_nms.launches += 1
-    return out
+    fast_nms_levels.launches += 1
+    return k1_views(out, sizes, table)
 
 
-fast_nms.launches = 0
+def k1_views(out: torch.Tensor, sizes, table: np.ndarray) -> list:
+    """Level l's [h_l, w_l] scores as a view of K1's flat output."""
+    L = len(sizes)
+    off = table[K1_HEAD + 3 * L:K1_HEAD + 4 * L].tolist()
+    return [out.as_strided((h, w), (w, 1), o) for (h, w), o in zip(sizes, off)]
+
+
+fast_nms_levels.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -350,27 +399,34 @@ def _slot_tables(cfg: ORBConfig, device: str):
     return torch.from_numpy(oct_np).to(device), torch.from_numpy(scale_np).to(device)
 
 
-def _patch_inputs(pyramid, xy_all, cfg: ORBConfig, shape):
-    """K2's inputs: the zero-padded level stack [L, Hp, Wp] and one
-    (level, y0, x0) row per keypoint slot. Keypoints keep EDGE_THRESHOLD=19
-    from their level's border and the patch reaches 21 px, so the stack
-    carries a 3-px zero margin; it is tall and wide enough that no start is
-    ever clamped."""
+def _level_stack(pyramid, shape) -> torch.Tensor:
+    """The zero-padded level stack [L, Hp, Wp] that K1 scores and K2
+    gathers from: level l at [l, pad:pad + h_l, pad:pad + w_l] with
+    pad = _PATCH_PAD = 3 px of zeros round it (keypoints keep
+    EDGE_THRESHOLD = 19 px from their level's border and a patch reaches
+    21 px), tall and wide enough that no patch start is ever clamped."""
     h, w = shape
-    sizes = cfg.level_sizes(h, w)
+    pd = _PATCH_PAD
+    hp2 = -(-(h + 2 * pd + 16) // 8) * 8
+    wp2 = -(-(w + 2 * pd + 16) // 8) * 8
+    stack = torch.zeros((len(pyramid), hp2, wp2), dtype=torch.float32,
+                        device=pyramid[0].device)
+    for l, lv in enumerate(pyramid):
+        stack[l, pd:pd + lv.shape[0], pd:pd + lv.shape[1]] = lv
+    return stack
+
+
+def _patch_starts(xy_all, cfg: ORBConfig, shape) -> torch.Tensor:
+    """K2's start table: one (level, y0, x0) row per keypoint slot, into
+    the stack of `_level_stack`."""
+    h, w = shape
     oct_dev, _ = _slot_tables(cfg, str(xy_all.device))
     pd = _PATCH_PAD
     hi_y = h + 2 * pd - _PATCH_HP + (_PATCH_HP - _PATCH_W)
     hi_x = w + 2 * pd + (_PATCH_WX - _PATCH_W) - _PATCH_WX
-    hp2 = -(-(h + 2 * pd + 16) // 8) * 8
-    wp2 = -(-(w + 2 * pd + 16) // 8) * 8
-    padded = torch.zeros((cfg.n_levels, hp2, wp2), dtype=torch.float32, device=xy_all.device)
-    for l in range(cfg.n_levels):
-        padded[l, pd:pd + sizes[l][0], pd:pd + sizes[l][1]] = pyramid[l]
     ys0 = torch.clamp(xy_all[:, 1] - _PATCH_R + pd, 0, hi_y)
     xs0 = torch.clamp(xy_all[:, 0] - _PATCH_R + pd, 0, hi_x)
-    lyx = torch.stack([oct_dev, ys0, xs0], dim=1).to(torch.int32).contiguous()
-    return padded, lyx
+    return torch.stack([oct_dev, ys0, xs0], dim=1).to(torch.int32).contiguous()
 
 
 def _extract_impl(image: torch.Tensor, cfg: ORBConfig, shape):
@@ -379,23 +435,18 @@ def _extract_impl(image: torch.Tensor, cfg: ORBConfig, shape):
     dev = image.device
     sizes = cfg.level_sizes(h, w)
     budgets = cfg.level_budgets()
-    xy_lvl, resp_all, valid_all, pyramid = [], [], [], []
-    level_img = image
-    for lvl in range(cfg.n_levels):
-        if lvl > 0:
-            level_img = _resize_level(level_img, sizes[lvl])
-        pyramid.append(level_img)
-        score = fast_nms(level_img.contiguous())
-        xy_l, resp, valid = _select_keypoints(score, budgets[lvl], cfg.cell, cfg.min_th)
-        xy_lvl.append(xy_l)
-        resp_all.append(resp)
-        valid_all.append(valid)
+    pyramid = [image]
+    for lvl in range(1, cfg.n_levels):
+        pyramid.append(_resize_level(pyramid[-1], sizes[lvl]))
+    stack = _level_stack(pyramid, shape)
+    scores = fast_nms_levels(stack, sizes)
+    xy_lvl, resp_all, valid_all = zip(*(
+        _select_keypoints(s, b, cfg.cell, cfg.min_th) for s, b in zip(scores, budgets)))
 
     oct_dev, scale_per_slot = _slot_tables(cfg, str(dev))
     xy_all = torch.cat(xy_lvl)
     n_slots = xy_all.shape[0]
-    padded, lyx = _patch_inputs(pyramid, xy_all, cfg, shape)
-    patches = gather_patches(padded, lyx)                   # [N, 48, 48]
+    patches = gather_patches(stack, _patch_starts(xy_all, cfg, shape))   # [N, 48, 48]
 
     S = _brief_matrix(str(dev))
     pf = patches.reshape(n_slots, _PATCH_HP * _PATCH_WX)

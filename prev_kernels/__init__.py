@@ -1,7 +1,8 @@
-"""The earlier designs of kernels K3 (pose-only LM) and K4 (local-BA build),
-with their wrappers, kept only so that chip_smoke.py can time each
-redesigned kernel against its predecessor in one run, in turns. The port
-never imports this package.
+"""The earlier designs of kernels K1 (FAST + NMS, one launch per pyramid
+level), K3 (pose-only LM) and K4 (local-BA build), with their wrappers,
+kept only so that chip_smoke.py can time each redesigned kernel against
+its predecessor in one run, in turns. The port never imports this
+package.
 
 `library()` builds `prev_kernels/*.cu` with
 `orb_slam2_comment_tpu_torch._build.compile_library` into the port's build
@@ -24,6 +25,8 @@ from orb_slam2_comment_tpu_torch.ops.optim import LBASystem, PoseOptResult
 _SRC = Path(__file__).resolve().parent
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
+    # img, out, h, w, margin, stream
+    "slam_prev_fast_nms": [_P, _P, _I, _I, _I, _P],
     # X, obs, invs2, comp, valid, delta, chi2th, pose0, pose_out, inl, B, n,
     # fx, fy, cx, cy, bf, rounds, iters, robust_rounds, stream
     "slam_prev_pose_lm": [_P] * 10 + [_I] * 2 + [_F] * 5 + [_I] * 3 + [_P],
@@ -49,6 +52,18 @@ def library() -> ctypes.CDLL:
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
     return lib
+
+
+def fast_nms_prev(img: torch.Tensor) -> torch.Tensor:
+    """The earlier K1 wrapper and kernel (CUDA tensors only): one launch
+    for one [H, W] f32 level."""
+    h, w = img.shape
+    _build.require(img, "img", torch.float32, (h, w))
+    out = torch.empty_like(img)
+    _build.check(library().slam_prev_fast_nms(_build.ptr(img), _build.ptr(out), h, w,
+                                              C.EDGE_THRESHOLD, _build.stream_of(img)),
+                 "slam_prev_fast_nms")
+    return out
 
 
 def pose_optimize_prev(Tcw0, Xw, obs, octave, is_stereo, valid, inv_sigma2_levels, K, bf,
