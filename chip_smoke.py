@@ -6,13 +6,17 @@ Builds the four hand-written CUDA kernels of orb_slam2_comment_tpu_torch
 prev_kernels/) and checks each against its plain PyTorch version on the
 card at the shapes of the RGB-D main path (K1 as one launch over the 8
 levels of a 480x640 and of a 376x1241 frame, K3 also as one batched
-launch of 5 poses, as relocalization runs it). Each kernel is timed three ways: the span of
-one call (`ms`), 100 calls back to back (`per_launch_ms`) and calls
-replayed from a CUDA graph (`device_ms`, no host dispatch), beside its
-plain version, its bound and, for K2, the one PyTorch call that computes
-the same function. Then it drives three paths of the default
-`System(cfg, device="cuda")` (loop closing on, as bench.py builds it), each
-with the launch counts set to 0 just before it and read just after:
+launch of 5 poses, as relocalization runs it) and at the stereo path's
+(K1 and K2 on its first 376x1241 frame with 2000 keypoints, K3 over 2000
+edges, K4 on the largest local-BA window of its run and on a window of
+the same capacities with 2000 observations per keyframe). Each kernel is
+timed three ways: the span of one call (`ms`), 100 calls back to back
+(`per_launch_ms`) and calls replayed from a CUDA graph (`device_ms`, no
+host dispatch), beside its plain version, its bound and, for K2, the one
+PyTorch call that computes the same function. Then it drives five paths
+of the default `System(cfg, device="cuda")` (loop closing on, as bench.py
+builds it), each with the launch counts set to 0 just before it and read
+just after:
 
   main   bench.py's config, scene and forward trajectory: every frame
          tracks, keyframes, local BA and loop detection happen, the
@@ -23,6 +27,14 @@ with the launch counts set to 0 just before it and read just after:
   loop   the orbit of tests/test_loop_closing.py (56 frames) at the bench
          config: a loop closes, the background global BA is applied, the
          trajectory error is small and a rerun is bit-identical.
+  stereo the street configuration of tools/make_datasets.py (376x1241,
+         2000 features, KITTI intrinsics and baseline) over 30 frames at
+         0.3 m: every frame tracks through System.track_stereo, K1 and K2
+         launch twice per frame, the error is small, a rerun is
+         bit-identical;
+  mono   the 14 frames of tests/test_loop_closing.py:53-77 at the bench
+         widths through System.track_monocular: the two-view initializer
+         succeeds, later frames track, a rerun is bit-identical.
 
     python3 chip_smoke.py [--frames N] [--profile FILE] [--kernels-only]
 
@@ -42,38 +54,49 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+_K1 = ("orb_slam2_comment_tpu_torch/csrc/fast_nms.cu", "orb_slam2_comment_tpu/ops/orb.py:302")
+_K2 = ("orb_slam2_comment_tpu_torch/csrc/gather_patches.cu",
+       "orb_slam2_comment_tpu/ops/orb.py:727")
+_K3 = ("orb_slam2_comment_tpu_torch/csrc/pose_lm.cu", "orb_slam2_comment_tpu/ops/lm_pallas.py:301")
+_K4 = ("orb_slam2_comment_tpu_torch/csrc/lba_build.cu",
+       "orb_slam2_comment_tpu/ops/lba_pallas.py:260")
+# the paths at 480x640 and 1000 features, and the stereo path at 376x1241
+# and 2000 features: each row reads its kernel's launch count on the paths
+# at its shapes
+_SMALL = ("main", "reloc", "loop", "mono")
 KERNEL_ROWS = [
-    # name, source, replaced Pallas call site
-    ("fast_nms", "orb_slam2_comment_tpu_torch/csrc/fast_nms.cu",
-     "orb_slam2_comment_tpu/ops/orb.py:302"),
-    ("gather_patches", "orb_slam2_comment_tpu_torch/csrc/gather_patches.cu",
-     "orb_slam2_comment_tpu/ops/orb.py:727"),
-    ("pose_lm", "orb_slam2_comment_tpu_torch/csrc/pose_lm.cu",
-     "orb_slam2_comment_tpu/ops/lm_pallas.py:301"),
-    ("lba_build", "orb_slam2_comment_tpu_torch/csrc/lba_build.cu",
-     "orb_slam2_comment_tpu/ops/lba_pallas.py:260"),
-    ("pose_lm_batched", "orb_slam2_comment_tpu_torch/csrc/pose_lm.cu",
-     "orb_slam2_comment_tpu/ops/lm_pallas.py:301"),
+    # name, (source, replaced Pallas call site), kernel counted, paths counted
+    ("fast_nms", _K1, "fast_nms", _SMALL),
+    ("gather_patches", _K2, "gather_patches", _SMALL),
+    ("pose_lm", _K3, "pose_lm", _SMALL),
+    ("lba_build", _K4, "lba_build", _SMALL),
+    ("pose_lm_batched", _K3, "pose_lm_batched", _SMALL),
+    ("fast_nms@376x1241", _K1, "fast_nms", ("stereo",)),
+    ("gather_patches@2000", _K2, "gather_patches", ("stereo",)),
+    ("pose_lm@2000", _K3, "pose_lm", ("stereo",)),
+    ("lba_build@stereo", _K4, "lba_build", ("stereo",)),
 ]
+K1_K4 = ("fast_nms", "gather_patches", "pose_lm", "lba_build")
 
 
 def counters():
-    """(wrapper, attribute) of each kernel's launch count, in KERNEL_ROWS
-    order."""
+    """kernel -> (wrapper, attribute) of its launch count."""
     from orb_slam2_comment_tpu_torch.ops import lba_cuda, lm_cuda, orb
 
-    return [(orb.fast_nms_levels, "launches"), (orb.gather_patches, "launches"),
-            (lm_cuda.pose_optimize_lm, "launches"), (lba_cuda.build_system, "launches"),
-            (lm_cuda.pose_optimize_lm, "batched_launches")]
+    return {"fast_nms": (orb.fast_nms_levels, "launches"),
+            "gather_patches": (orb.gather_patches, "launches"),
+            "pose_lm": (lm_cuda.pose_optimize_lm, "launches"),
+            "lba_build": (lba_cuda.build_system, "launches"),
+            "pose_lm_batched": (lm_cuda.pose_optimize_lm, "batched_launches")}
 
 
 def zero_counts():
-    for fn, attr in counters():
+    for fn, attr in counters().values():
         setattr(fn, attr, 0)
 
 
 def read_counts():
-    return [getattr(fn, attr) for fn, attr in counters()]
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
 
 
 def cuda_ms(fn, reps=30, warm=3):
@@ -294,37 +317,44 @@ def kitti_frame():
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def check_k1_k2(cfg, frame, dev):
-    import prev_kernels
+def k1_measure(pyr, stack, sizes, err, rate):
+    """K1's times over one frame's level stack, beside its plain version
+    and its bound."""
     from orb_slam2_comment_tpu_torch import constants as C
     from orb_slam2_comment_tpu_torch.ops import orb
 
-    ocfg = cfg.orb
-    h, w = cfg.height, cfg.width
-    img = torch.from_numpy(frame["image"]).to(dev).float()
-    pyr, stack, sizes = k1_inputs(img, ocfg)
-    scores = orb.fast_nms_levels(stack, sizes)
-    err = check_k1_levels(pyr, scores, "K1")
-    kpyr, kstack, ksizes = k1_inputs(torch.from_numpy(kitti_frame()).to(dev).float(), ocfg)
-    check_k1_levels(kpyr, orb.fast_nms_levels(kstack, ksizes), "K1 at 376x1241")
     px = sum(lv.numel() for lv in pyr)
     m = 2 * C.EDGE_THRESHOLD
     inside = sum((lh - m) * (lw - m) for lh, lw in sizes)
-    rate = minmax_rate()
-    k1 = dict(max_abs_err=err, library_ms=None, minmax_per_s=rate,
-              **timed(lambda: orb.fast_nms_levels(stack, sizes),
-                      lambda: [orb.fast_nms_plain(lv) for lv in pyr]),
-              **bound(2 * 4 * px, K1_SLOTS_PER_PX * inside, rate))
-    k1.update(against_earlier("K1 fast_nms", lambda: orb.fast_nms_levels(stack, sizes),
-                              lambda: [prev_kernels.fast_nms_prev(lv) for lv in pyr],
-                              lambda o: check_k1_levels(pyr, o, "earlier K1")))
+    return dict(max_abs_err=err, library_ms=None, minmax_per_s=rate,
+                **timed(lambda: orb.fast_nms_levels(stack, sizes),
+                        lambda: [orb.fast_nms_plain(lv) for lv in pyr]),
+                **bound(2 * 4 * px, K1_SLOTS_PER_PX * inside, rate))
+
+
+def k2_inputs(cfg, img, dev, what):
+    """One frame's K1 inputs and scores (held bit-exact to the plain
+    version) and K2's start table for its keypoints."""
+    from orb_slam2_comment_tpu_torch.ops import orb
+
+    ocfg = cfg.orb
+    pyr, stack, sizes = k1_inputs(torch.from_numpy(img).to(dev).float(), ocfg)
+    scores = orb.fast_nms_levels(stack, sizes)
+    err = check_k1_levels(pyr, scores, what)
     budgets = ocfg.level_budgets()
     xy_all = torch.cat([orb._select_keypoints(s, budgets[i], ocfg.cell, ocfg.min_th)[0]
                         for i, s in enumerate(scores)])
-    padded, lyx = stack, orb._patch_starts(xy_all, ocfg, (h, w))
+    return pyr, stack, sizes, err, orb._patch_starts(xy_all, ocfg, (cfg.height, cfg.width))
+
+
+def k2_measure(padded, lyx, dev):
+    """K2 bit-exact against its plain version and its library call, with
+    its times and bound."""
+    from orb_slam2_comment_tpu_torch.ops import orb
+
     a, b = orb.gather_patches(padded, lyx), orb.gather_patches_plain(padded, lyx)
     if not torch.equal(a, b):
-        raise AssertionError("K2 differs from its plain version")
+        raise AssertionError(f"K2 differs from its plain version at {lyx.shape[0]} patches")
     # the library call: one advanced-indexing gather with prebuilt indices
     L, Hp, Wp = padded.shape
     P = a.shape[1]
@@ -339,11 +369,27 @@ def check_k1_k2(cfg, frame, dev):
     # written once, the start table read once
     covered = torch.zeros_like(padded, dtype=torch.bool)
     covered[lv_i, yy, xx] = True
-    k2 = dict(max_abs_err=(a - b).abs().max().item(),
-              library_ms=per_launch_ms(lambda: padded[lv_i, yy, xx]),
-              **timed(lambda: orb.gather_patches(padded, lyx),
-                      lambda: orb.gather_patches_plain(padded, lyx), plain_reps=30),
-              **bound(4 * int(covered.sum()) + 4 * a.numel() + 4 * lyx.numel(), 0))
+    return dict(max_abs_err=(a - b).abs().max().item(),
+                library_ms=per_launch_ms(lambda: padded[lv_i, yy, xx]),
+                **timed(lambda: orb.gather_patches(padded, lyx),
+                        lambda: orb.gather_patches_plain(padded, lyx), plain_reps=30),
+                **bound(4 * int(covered.sum()) + 4 * a.numel() + 4 * lyx.numel(), 0))
+
+
+def check_k1_k2(cfg, frame, dev):
+    import prev_kernels
+    from orb_slam2_comment_tpu_torch.ops import orb
+
+    ocfg = cfg.orb
+    pyr, stack, sizes, err, lyx = k2_inputs(cfg, frame["image"], dev, "K1")
+    kpyr, kstack, ksizes = k1_inputs(torch.from_numpy(kitti_frame()).to(dev).float(), ocfg)
+    check_k1_levels(kpyr, orb.fast_nms_levels(kstack, ksizes), "K1 at 376x1241")
+    rate = minmax_rate()
+    k1 = k1_measure(pyr, stack, sizes, err, rate)
+    k1.update(against_earlier("K1 fast_nms", lambda: orb.fast_nms_levels(stack, sizes),
+                              lambda: [prev_kernels.fast_nms_prev(lv) for lv in pyr],
+                              lambda o: check_k1_levels(pyr, o, "earlier K1")))
+    k2 = k2_measure(stack, lyx, dev)
     print(f"# K1 fast_nms: one launch, 8 levels bit-exact at 480x640 and 376x1241, 0 outside "
           f"the mask; {k1['ms']:.4f} ms/frame, {k1['per_launch_ms']:.4f} per frame back to "
           f"back, {k1['device_ms']:.4f} from a graph (plain {k1['plain_ms']:.4f}, "
@@ -357,7 +403,7 @@ def check_k1_k2(cfg, frame, dev):
 
 
 def k3_problem(cfg, r):
-    """One motion-only BA problem at the main path's feature count:
+    """One motion-only BA problem at the config's feature count:
     (T_gt, [T0, Xw, obs, octave, is_stereo, valid, inv_sigma2] as numpy)."""
     N = sum(cfg.orb.level_budgets())
     K, bf = cfg.K, cfg.bf
@@ -389,7 +435,9 @@ def k3_bound(args, cfg):
     return bound(nbytes, K3_OPS_PER_EDGE_ITER * iters * int(valid.sum()))
 
 
-def check_k3(cfg, dev):
+def check_k3(cfg, dev, name="K3 pose_lm", earlier=True):
+    """K3 on one problem at cfg's feature count (and its camera) against
+    its plain version; with `earlier`, timed against its earlier design."""
     import prev_kernels
     from orb_slam2_comment_tpu_torch.ops import lm_cuda
 
@@ -414,10 +462,11 @@ def check_k3(cfg, dev):
         if not (eT < 5e-3 and en <= 5):
             raise AssertionError(f"earlier K3 disagrees: |dT|={eT} |dinl|={en}")
 
-    res.update(against_earlier("K3 pose_lm", lambda: lm_cuda.pose_optimize_lm(*args, K, bf),
-                               lambda: prev_kernels.pose_optimize_prev(*args, K, bf),
-                               close_to_plain))
-    print(f"# K3 pose_lm: N={N} |dT|={dT:.2e} |dinl|={dn} (inliers {int(ker.n_inliers)}, "
+    if earlier:
+        res.update(against_earlier(name, lambda: lm_cuda.pose_optimize_lm(*args, K, bf),
+                                   lambda: prev_kernels.pose_optimize_prev(*args, K, bf),
+                                   close_to_plain))
+    print(f"# {name}: N={N} ({2 * N * 16} B of shared memory) |dT|={dT:.2e} |dinl|={dn} (inliers {int(ker.n_inliers)}, "
           f"pose vs truth {gt_err:.2e}); {res['ms']:.4f} ms, {res['device_ms']:.4f} from a graph, "
           f"{res['per_launch_ms']:.4f} per "
           f"launch back to back (plain {res['plain_ms']:.4f}, bound {res['bound_ms']:.6f})",
@@ -523,6 +572,87 @@ def k4_fields(r, NC, NP, N_PER, F, K, BF):
         obs_valid=r.random(O) < 0.95)
 
 
+def k4_bytes(NC, NP, O, n_obs, F):
+    """K4's bytes: cam_T and pts in, the ok flag of each of the O slots,
+    and uvr, point id, octave and stereo flag of the n_obs active ones (an
+    inactive slot returns after its flag, lba_build.cu:98-99); Hcc, bc,
+    Hpp, bp, E, cost and n_in out."""
+    return (NC * 66 + NP * 12 + O * 1 + n_obs * (12 + 4 + 4 + 1)
+            + F * 42 * 4 + NP * 12 * 4 + F * 18 * NP * 4 + 8)
+
+
+def k4_field_err(sp, sk, what):
+    """Largest per-field error of K4's system sk relative to the plain sp;
+    each must be below 1e-3."""
+    worst = 0.0
+    for fld in sp._fields:
+        a, b = getattr(sp, fld).double(), getattr(sk, fld).double()
+        err = ((a - b).abs().max() / max(a.abs().max().item(), 1e-6)).item()
+        worst = max(worst, err)
+        if not err < 1e-3:
+            raise AssertionError(f"{what}: field {fld} rel err {err}")
+    return worst
+
+
+def check_k4_window(prep, K, BF):
+    """K4 on a real local-BA window of the stereo path (the one with the
+    most valid observations) where the mapper linearizes it: robust over
+    every valid observation at the window's start (lba_init), and not
+    robust over the observations the prune keeps (lba_prune drops chi2 and
+    depth outliers, whose unweighted residuals may be infinite). Then on a
+    dense window at the stereo camera with the real window's capacities
+    (2000 observations per camera, ~95% valid, as the 2000-feature path
+    could fill it). Each field within 1e-3 relative of the plain version, a
+    rerun bit-identical; the row is timed on the real window."""
+    from orb_slam2_comment_tpu_torch.ops import lba_cuda, optim
+
+    prob, inv, F = prep.prob, prep.inv_sigma2_levels, prep.F
+    start = optim.lba_init(prob, inv, K, BF)
+    pruned = optim.lba_prune(prob, inv, start, K, BF)
+    NC, NP, O = prob.cam_T.shape[0], prob.pts.shape[0], prob.obs_cam.shape[0]
+    dense = optim.BAProblem(**{k: torch.from_numpy(v).to(inv.device) for k, v in k4_fields(
+        np.random.default_rng(2), NC, NP, prep.N_per, F, K, BF).items()})
+    dprep = lba_cuda.prep_problem(dense, inv, F)
+    worst = 0.0
+    for what, pp, pr, (cam_T, pts, *_, obs_ok), robust in (
+            ("the stereo window", prep, prob, start, True),
+            ("the stereo window", prep, prob, pruned, False),
+            ("the dense stereo window", dprep, dense, (dense.cam_T, dense.pts, dense.obs_valid),
+             True),
+            ("the dense stereo window", dprep, dense, (dense.cam_T, dense.pts, dense.obs_valid),
+             False)):
+        sk = lba_cuda.build_system(pp, cam_T, pts, obs_ok, robust, K, BF)
+        sp = optim.build_system_plain(pr, inv, F, cam_T, pts, obs_ok, robust, K, BF)
+        again = lba_cuda.build_system(pp, cam_T, pts, obs_ok, robust, K, BF)
+        worst = max(worst, k4_field_err(sp, sk, f"K4 on {what} (robust={robust})"))
+        if not all(torch.equal(getattr(sk, f), getattr(again, f)) for f in sk._fields):
+            raise AssertionError(f"K4 on {what}: a rerun differs")
+    n_obs, n_dense = int(prob.obs_valid.sum()), int(dense.obs_valid.sum())
+    cam_T = start[0]
+    res = dict(
+        max_abs_err=worst, library_ms=None,
+        **timed(lambda: lba_cuda.build_system(prep, cam_T, prob.pts, prob.obs_valid,
+                                              True, K, BF),
+                lambda: optim.build_system_plain(prob, inv, F, cam_T, prob.pts,
+                                                 prob.obs_valid, True, K, BF)),
+        **bound(k4_bytes(NC, NP, O, n_obs, F), K4_OPS_PER_OBS * n_obs))
+    dres = dict(**timed(lambda: lba_cuda.build_system(dprep, dense.cam_T, dense.pts,
+                                                      dense.obs_valid, True, K, BF),
+                        lambda: optim.build_system_plain(dense, inv, F, dense.cam_T, dense.pts,
+                                                         dense.obs_valid, True, K, BF)),
+                **bound(k4_bytes(NC, NP, O, n_dense, F), K4_OPS_PER_OBS * n_dense))
+    res.update({f"dense_{k}": v for k, v in dres.items()}, dense_valid_obs=n_dense)
+    print(f"# K4 lba_build@stereo: {NC} cams ({F} free) x {NP} pts x {O} obs ({n_obs} valid, "
+          f"{int(pruned[5].sum())} after the prune, {prep.N_per} per camera); worst field rel "
+          f"err {worst:.2e} with the dense window; {res['ms']:.4f} ms, {res['device_ms']:.4f} "
+          f"from a graph, {res['per_launch_ms']:.4f} per launch back to back (plain "
+          f"{res['plain_ms']:.4f}, bound {res['bound_ms']:.6f}); dense window ({n_dense} "
+          f"valid): {dres['ms']:.4f} ms, {dres['device_ms']:.4f} from a graph, "
+          f"{dres['per_launch_ms']:.4f} back to back (plain {dres['plain_ms']:.4f}, bound "
+          f"{dres['bound_ms']:.6f})", flush=True)
+    return res
+
+
 def check_k4(dev):
     """K4 at the main path's window (32 cameras, 16 free, 2048 points, 1000
     observations per camera) and on a dense window (64 points seen ~100
@@ -550,16 +680,10 @@ def check_k4(dev):
             sp = optim.build_system_plain(pr, inv_dev, F, pr.cam_T, pr.pts, pr.obs_valid,
                                           robust, K, BF)
             again = lba_cuda.build_system(pp, pr.cam_T, pr.pts, pr.obs_valid, robust, K, BF)
-            for fld in sp._fields:
-                a = getattr(sp, fld).double()
-                b = getattr(sk, fld).double()
-                err = ((a - b).abs().max() / max(a.abs().max().item(), 1e-6)).item()
-                worst = max(worst, err)
-                if not err < 1e-3:
-                    raise AssertionError(f"K4 field {fld} (robust={robust}, Np="
-                                         f"{pr.pts.shape[0]}) rel err {err}")
-                if not torch.equal(getattr(sk, fld), getattr(again, fld)):
-                    raise AssertionError(f"K4 field {fld}: a rerun differs")
+            worst = max(worst, k4_field_err(sp, sk, f"K4 (robust={robust}, Np="
+                                                     f"{pr.pts.shape[0]})"))
+            if not all(torch.equal(getattr(sk, f), getattr(again, f)) for f in sk._fields):
+                raise AssertionError("K4: a rerun differs")
     prob = optim.BAProblem(**{k: torch.from_numpy(v).to(dev) for k, v in fields.items()})
     prob_cpu = optim.BAProblem(**{k: torch.from_numpy(v) for k, v in fields.items()})
     prep = lba_cuda.prep_problem(prob, inv_dev, F)
@@ -574,30 +698,22 @@ def check_k4(dev):
     if not (abs(c_k - c_p) / max(abs(c_p), 1.0) < 1e-3 and int(ck[4]) == int(cp[4])):
         raise AssertionError(f"K4 lba_iterate(5): cost {c_k} vs {c_p}, "
                              f"inliers {int(ck[4])} vs {int(cp[4])}")
-    # bytes: cam_T, pts, and per observation uvr, point id, octave,
-    # stereo and ok flags in; Hcc, bc, Hpp, bp, E, cost and n_in out
-    nbytes = (NC * 66 + NP * 12 + O * (12 + 4 + 4 + 1 + 1)
-              + F * 42 * 4 + NP * 12 * 4 + F * 18 * NP * 4 + 8)
     res = dict(
         max_abs_err=worst, library_ms=None,
         **timed(lambda: lba_cuda.build_system(prep, prob.cam_T, prob.pts, prob.obs_valid,
                                               True, K, BF),
                 lambda: optim.build_system_plain(prob, inv_dev, F, prob.cam_T, prob.pts,
                                                  prob.obs_valid, True, K, BF)),
-        **bound(nbytes, K4_OPS_PER_OBS * int(prob.obs_valid.sum())))
-
-    def close_to_plain(o):
-        for fld in sp._fields:
-            a, b = getattr(sp, fld).double(), getattr(o, fld).double()
-            if not ((a - b).abs().max() / max(a.abs().max().item(), 1e-6)).item() < 1e-3:
-                raise AssertionError(f"earlier K4 field {fld} disagrees")
+        **bound(k4_bytes(NC, NP, O, int(prob.obs_valid.sum()), F),
+                K4_OPS_PER_OBS * int(prob.obs_valid.sum())))
 
     pprev = prev_kernels.prep_prev(prob, inv_dev, F)
     res.update(against_earlier(
         "K4 lba_build",
         lambda: lba_cuda.build_system(prep, prob.cam_T, prob.pts, prob.obs_valid, True, K, BF),
         lambda: prev_kernels.build_system_prev(pprev, prob.cam_T, prob.pts, prob.obs_valid,
-                                               True, K, BF), close_to_plain))
+                                               True, K, BF),
+        lambda o: k4_field_err(sp, o, "earlier K4")))
     print(f"# K4 lba_build: {NC} cams x {NP} pts x {O} obs; worst field rel err "
           f"{worst:.2e}; lba_iterate(5) cost {c_k:.6g} vs plain {c_p:.6g}, inliers "
           f"{int(ck[4])}; {res['ms']:.4f} ms, {res['device_ms']:.4f} from a graph, "
@@ -607,7 +723,7 @@ def check_k4(dev):
 
 
 # ---------------------------------------------------------------------------
-# the three paths of the default System
+# the paths of the default System
 # ---------------------------------------------------------------------------
 
 def make_system(cfg, dev):
@@ -849,15 +965,184 @@ def loop_path(cfg, frames, dev):
                 reference_cpu=dict(loop_pair=[22, 0], n_kfs=27, ate_m=0.02025))
 
 
+# the street configuration of tools/make_datasets.py:54-62 (KITTI stereo)
+KITTI_K = (718.0, 718.0, 620.0, 188.0)
+KITTI_HW = (376, 1241)
+KITTI_BASELINE = 0.54
+
+
+def stereo_config():
+    """The street config: 376x1241 stereo, bf = 718 x 0.54, 2000 features x
+    8 levels, ThDepth 40, 10 fps; bench.py's capacities."""
+    from orb_slam2_comment_tpu_torch.utils.config import SlamConfig
+
+    K = KITTI_K
+    return SlamConfig(
+        sensor="stereo", fx=K[0], fy=K[1], cx=K[2], cy=K[3], bf=K[0] * KITTI_BASELINE,
+        width=KITTI_HW[1], height=KITTI_HW[0], fps=10.0, th_depth=40.0, n_features=2000,
+        n_levels=8, max_keyframes=128, max_points=32768, grow_capacity=False,
+        match_th_scale=1.5)
+
+
+def render_stereo(n_frames=30):
+    """make_scene(3200 points, seed 0) driven through forward at 0.3 m per
+    frame, seen by the KITTI-shaped pair, uint8."""
+    from orb_slam2_comment_tpu_torch.utils import synthetic as syn
+
+    scene = syn.make_scene(n_points=3200, seed=0)
+    poses = syn.make_trajectory("forward", n_frames=n_frames, step=0.3)
+    frames = []
+    for f in syn.render_sequence(scene, poses, K=KITTI_K, hw=KITTI_HW, stereo=True,
+                                 baseline=KITTI_BASELINE):
+        for k in ("image", "image_right"):
+            f[k] = np.clip(f[k], 0, 255).astype(np.uint8)
+        frames.append(f)
+    return frames
+
+
+def mono_config():
+    """bench.py's widths and capacities, monocular."""
+    import dataclasses
+
+    return dataclasses.replace(bench_config(), sensor="monocular", depth_map_factor=1.0)
+
+
+def render_mono():
+    """The scene and 14-frame sideways trajectory of
+    tests/test_loop_closing.py:53-77, uint8."""
+    from orb_slam2_comment_tpu_torch.utils import synthetic as syn
+
+    scene = syn.make_scene(n_points=1600, seed=0, extent=(8.0, 6.0, 8.0), z_near=1.5)
+    poses = np.tile(np.eye(4, dtype=np.float32), (14, 1, 1))
+    poses[:, 0, 3] = -0.12 * np.arange(14)
+    poses[:, 2, 3] = -0.02 * np.arange(14)
+    frames = []
+    for f in syn.render_sequence(scene, poses, K=syn.DEFAULT_K):
+        f["image"] = np.clip(f["image"], 0, 255).astype(np.uint8)
+        frames.append(f)
+    return frames
+
+
+def run_sensor(cfg, frames, dev, track):
+    """track(system, frame) over the frames of a new default System.
+    Returns (system, per-frame (Tcw or None, inliers, created_kf),
+    per-frame seconds)."""
+    system = make_system(cfg, dev)
+    recs, secs = [], []
+    for f in frames:
+        t0 = time.perf_counter()
+        out = track(system, f)
+        secs.append(time.perf_counter() - t0)
+        recs.append((None if out.Tcw is None else np.asarray(out.Tcw, np.float64),
+                     out.n_inliers, out.created_kf))
+    system.shutdown()
+    return system, recs, secs
+
+
+def same_records(a, b, what):
+    for i, (x, y) in enumerate(zip(a, b, strict=True)):
+        if x[1:] != y[1:] or (x[0] is None) != (y[0] is None) or (
+                x[0] is not None and not np.array_equal(x[0], y[0])):
+            raise AssertionError(f"{what} rerun differs at frame {i}")
+
+
+def latency(secs, n_warm):
+    dt = np.asarray(secs[n_warm:]) * 1e3
+    return dict(timed=len(dt), fps=len(dt) / (dt.sum() / 1e3),
+                p50_ms=float(np.percentile(dt, 50)), p90_ms=float(np.percentile(dt, 90)),
+                p99_ms=float(np.percentile(dt, 99)), max_ms=float(dt.max()))
+
+
+def stereo_path(cfg, frames, dev, windows):
+    """System.track_stereo over the KITTI-shaped sequence: every frame
+    tracked, >= 3 keyframes, ATE < 2 cm, a bit-identical rerun. The local-BA
+    windows of the first run are kept in `windows` for K4's check."""
+    from orb_slam2_comment_tpu_torch.ops import lba_cuda
+    from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
+
+    def track(system, f):
+        return system.track_stereo(f["image"], f["image_right"], f["timestamp"])
+
+    prep = lba_cuda.prep_problem
+
+    def keep(*a, **k):
+        windows.append(prep(*a, **k))
+        return windows[-1]
+
+    lba_cuda.prep_problem = keep
+    try:
+        system, recs, secs = run_sensor(cfg, frames, dev, track)
+    finally:
+        lba_cuda.prep_problem = prep
+    torch.cuda.synchronize()
+    lost = [i for i, r in enumerate(recs) if r[0] is None]
+    if lost:
+        raise AssertionError(f"stereo frames not tracked: {lost}")
+    n_kfs = system.tracker.n_kfs
+    if n_kfs < 3:
+        raise AssertionError(f"stereo: only {n_kfs} keyframes")
+    poses = [r[0] for r in recs]
+    ate = ate_rmse(poses, [f["Tcw_gt"] for f in frames])
+    if not (np.all(np.isfinite(np.stack(poses))) and ate < 0.02):
+        raise AssertionError(f"stereo ATE {ate} m")
+    _, recs2, _ = run_sensor(cfg, frames, dev, track)
+    same_records(recs, recs2, "stereo")
+    return dict(frames=len(frames), frames_run=2 * len(frames), **latency(secs, 3),
+                n_kfs=n_kfs, kf_frames=[i for i, r in enumerate(recs) if r[2]], ate_m=ate,
+                rerun_identical_frames=len(frames), ba_windows=len(windows),
+                inliers_median=float(np.median([r[1] for r in recs[1:]])),
+                reference_cpu=dict(tracked=30, n_kfs=4, ate_m=0.0092))
+
+
+def mono_path(cfg, frames, dev):
+    """System.track_monocular over the 14 frames: initialization succeeds,
+    >= 2 keyframes, >= 8 frames tracked, Umeyama ATE < 5 cm, a
+    bit-identical rerun."""
+    from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
+
+    def track(system, f):
+        return system.track_monocular(f["image"], f["timestamp"])
+
+    system, recs, secs = run_sensor(cfg, frames, dev, track)
+    torch.cuda.synchronize()
+    tracked = [i for i, r in enumerate(recs) if r[0] is not None]
+    if not tracked:
+        raise AssertionError("monocular initialization never succeeded")
+    init = tracked[0]
+    n_kfs = system.tracker.n_kfs
+    if n_kfs < 2 or len(tracked) < 8:
+        raise AssertionError(f"mono: {n_kfs} keyframes, {len(tracked)} frames tracked")
+    ate = ate_rmse([recs[i][0] for i in tracked], [frames[i]["Tcw_gt"] for i in tracked],
+                   align="umeyama")
+    if not ate < 0.05:
+        raise AssertionError(f"mono ATE {ate}")
+    _, recs2, _ = run_sensor(cfg, frames, dev, track)
+    same_records(recs, recs2, "mono")
+    after = np.asarray(secs[init + 1:]) * 1e3
+    return dict(frames=len(frames), frames_run=2 * len(frames), init_frame=init,
+                init_frame_ms=secs[init] * 1e3, before_init_ms=[t * 1e3 for t in secs[:init]],
+                tracked=len(tracked), n_kfs=n_kfs, n_points=system.tracker.n_pts_host,
+                n_live_points=int(system.tracker.map.pt_valid.sum()),
+                ate_m=ate, after_init_p50_ms=float(np.median(after)),
+                after_init_p99_ms=float(np.percentile(after, 99)),
+                rerun_identical_frames=len(frames),
+                # the JAX package on the CPU (tests/test_torch_mono.py run as a
+                # script): n_points is its cursor `tracker.n_pts`
+                reference_cpu=dict(tracked=12, n_kfs=4, ate_m=0.0143, n_points=681,
+                                   n_live_points=404))
+
+
 def drive(name, fn, path_kernels, per_path):
     """Run one path with the launch counts set to 0 just before it and read
     just after; every kernel the path runs must have launched."""
     zero_counts()
+    t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
+    res["seconds"] = time.perf_counter() - t0
     counts = read_counts()
     per_path[name] = counts
-    missing = [KERNEL_ROWS[k][0] for k in path_kernels if counts[k] <= 0]
+    missing = [k for k in path_kernels if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{name} path: kernels never launched: {missing} ({counts})")
     print(f"# {name}_path " + json.dumps(res), flush=True)
@@ -901,37 +1186,59 @@ def main():
             if [int(t) for t in line.split() if t.isdigit()] != [0, 0, 0]:
                 raise AssertionError(f"ptxas: a stack frame or spills: {line.strip()}")
 
-    cfg = bench_config()
+    cfg, scfg, mcfg = bench_config(), stereo_config(), mono_config()
     t0 = time.perf_counter()
     frames = render_frames(max(args.frames, 80))
-    orbit = [] if args.kernels_only else render_orbit()
-    print(f"# rendered {len(frames)} + {len(orbit)} frames in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    sframes = render_stereo()
+    orbit, mframes = ([], []) if args.kernels_only else (render_orbit(), render_mono())
+    print(f"# rendered {len(frames)} + {len(sframes)} stereo + {len(orbit)} + {len(mframes)} "
+          f"frames in {time.perf_counter() - t0:.1f} s", flush=True)
 
     checks = list(check_k1_k2(cfg, frames[0], dev))
     checks += [check_k3(cfg, dev), check_k4(dev), check_k3_batched(cfg, dev)]
+    # K1, K2 and K3 at the stereo path's shapes
+    spyr, sstack, ssizes, serr, slyx = k2_inputs(scfg, sframes[0]["image"], dev,
+                                                 "K1 on the first stereo frame")
+    checks += [k1_measure(spyr, sstack, ssizes, serr, minmax_rate()),
+               k2_measure(sstack, slyx, dev)]
+    print(f"# K1@376x1241 {checks[-2]['device_ms']:.4f} ms from a graph; K2 gather_patches@"
+          f"{slyx.shape[0]}: bit-exact, {checks[-1]['device_ms']:.4f} ms from a graph, "
+          f"{checks[-1]['per_launch_ms']:.4f} back to back (library "
+          f"{checks[-1]['library_ms']:.4f}, bound {checks[-1]['bound_ms']:.5f})", flush=True)
+    checks.append(check_k3(scfg, dev, "K3 pose_lm@2000", earlier=False))
     torch.cuda.synchronize()
     if args.kernels_only:
         return 0
 
-    per_path = {}
-    k1_k4 = (0, 1, 2, 3)
-    main_frames = drive("main", lambda: main_path(cfg, frames[:args.frames], dev, args.profile),
-                        k1_k4, per_path)["frames_run"]
-    if per_path["main"][0] != main_frames:
-        raise AssertionError(f"K1 launched {per_path['main'][0]} times over {main_frames} "
-                             "main frames, not once per frame")
-    drive("reloc", lambda: reloc_path(cfg, frames, dev), k1_k4 + (4,), per_path)
-    drive("loop", lambda: loop_path(cfg, orbit, dev), k1_k4, per_path)
-    print("# launches per path " + json.dumps(
-        {p: dict(zip([r[0] for r in KERNEL_ROWS], c)) for p, c in per_path.items()}),
-        flush=True)
+    per_path, frames_run = {}, {}
+
+    def run(name, fn, kernels):
+        frames_run[name] = drive(name, fn, kernels, per_path).get("frames_run")
+
+    run("main", lambda: main_path(cfg, frames[:args.frames], dev, args.profile), K1_K4)
+    run("reloc", lambda: reloc_path(cfg, frames, dev), K1_K4 + ("pose_lm_batched",))
+    run("loop", lambda: loop_path(cfg, orbit, dev), K1_K4)
+    windows = []
+    run("stereo", lambda: stereo_path(scfg, sframes, dev, windows), K1_K4)
+    run("mono", lambda: mono_path(mcfg, mframes, dev), K1_K4)
+    for path, k, per in (("main", "fast_nms", 1), ("stereo", "fast_nms", 2),
+                         ("stereo", "gather_patches", 2), ("mono", "fast_nms", 1)):
+        if per_path[path][k] != per * frames_run[path]:
+            raise AssertionError(f"{k} launched {per_path[path][k]} times over "
+                                 f"{frames_run[path]} {path} frames, not {per} per frame")
+    print("# launches per path " + json.dumps(per_path), flush=True)
+    # K4 on the stereo run's largest local-BA window
+    checks.append(check_k4_window(max(windows, key=lambda w: int(w.prob.obs_valid.sum())),
+                                  scfg.K, scfg.bf))
 
     rows = []
-    for k, ((name, src, rep), res) in enumerate(zip(KERNEL_ROWS, checks)):
+    for (name, (src, rep), kern, paths), res in zip(KERNEL_ROWS, checks, strict=True):
         rows.append(dict(name=name, route="cuda", source=src, replaces=rep,
-                         launches=sum(c[k] for c in per_path.values()),
-                         launches_per_main_frame=per_path["main"][k] / main_frames,
+                         launches=sum(per_path[p][kern] for p in paths),
+                         launches_per_main_frame=(per_path["main"][kern] / frames_run["main"]
+                                                  if "main" in paths else None),
+                         launches_per_frame={p: per_path[p][kern] / frames_run[p]
+                                             for p in paths if frames_run[p]},
                          **res))
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,5 +1,7 @@
-"""Per-image frame construction — the RGB-D part of
-`orb_slam2_comment_tpu/models/frame.py`."""
+"""Per-image frame construction — the port of
+`orb_slam2_comment_tpu/models/frame.py`: RGB-D, stereo and monocular
+frames. The `*_features` helpers are shared by the host path's frames and
+the tracker's device step."""
 
 from __future__ import annotations
 
@@ -75,13 +77,49 @@ def depth_to_tensor(depth_map, device) -> torch.Tensor:
 def rgbd_features(image: torch.Tensor, depth_map: torch.Tensor, cfg: SlamConfig):
     """Extraction + depth per keypoint + undistortion (the front half of
     tracking._frame_step_rgbd). Returns (feats, uright, depth, pyramid)."""
-    feats, pyr = orb._extract_impl(image, cfg.orb, (cfg.height, cfg.width))
+    feats, pyr, _ = orb._extract_impl(image, cfg.orb, (cfg.height, cfg.width))
     d = stereo.sample_depth_at(depth_map, feats.xy).to(torch.float32)
     if cfg.depth_map_factor != 1.0:
         d = d / cfg.depth_map_factor
     uright, depth = stereo.depth_to_uright(feats.xy, d, cfg.bf)
     feats = feats.replace(xy=undistort_points(feats.xy, cfg))
     return feats, uright, depth, pyr
+
+
+def stereo_features(image_l: torch.Tensor, image_r: torch.Tensor, cfg: SlamConfig):
+    """Extraction of both images, stereo matching on the left keypoints
+    and undistortion (the front half of tracking._frame_step_stereo).
+    Returns (feats, uright, depth, left pyramid)."""
+    shape = (cfg.height, cfg.width)
+    feats_l, pyr_l, stack_l = orb._extract_impl(image_l, cfg.orb, shape)
+    feats_r, _, stack_r = orb._extract_impl(image_r, cfg.orb, shape)
+    uright, depth = stereo.stereo_match(
+        feats_l, feats_r, stack_l, stack_r, cfg.orb.level_sizes(*shape), tuple(cfg.orb.scales),
+        cfg.bf, min_z=cfg.baseline, n_levels=cfg.n_levels,
+        th_stereo=min(75.0 * cfg.match_th_scale, 100.0))
+    feats_l = feats_l.replace(xy=undistort_points(feats_l.xy, cfg))
+    return feats_l, uright, depth, pyr_l
+
+
+def mono_features(image: torch.Tensor, cfg: SlamConfig):
+    """Extraction and undistortion; no feature has a right u or a depth.
+    Returns (feats, uright, depth, pyramid)."""
+    feats, pyr, _ = orb._extract_impl(image, cfg.orb, (cfg.height, cfg.width))
+    none = torch.full(feats.valid.shape, -1.0, dtype=torch.float32, device=image.device)
+    return feats.replace(xy=undistort_points(feats.xy, cfg)), none, none.clone(), pyr
+
+
+def build_frame_stereo(frame_id: int, timestamp: float, image_left, image_right,
+                       cfg: SlamConfig, device="cpu") -> Frame:
+    feats, uright, depth, pyr = stereo_features(
+        image_to_tensor(image_left, device), image_to_tensor(image_right, device), cfg)
+    return Frame(frame_id, timestamp, feats, uright, depth, pyramid=pyr)
+
+
+def build_frame_mono(frame_id: int, timestamp: float, image, cfg: SlamConfig,
+                     device="cpu") -> Frame:
+    feats, uright, depth, pyr = mono_features(image_to_tensor(image, device), cfg)
+    return Frame(frame_id, timestamp, feats, uright, depth, pyramid=pyr)
 
 
 def build_frame_rgbd(frame_id: int, timestamp: float, image, depth_map,

@@ -1,16 +1,17 @@
-"""Public API — the RGB-D slice of `orb_slam2_comment_tpu/models/system.py`
-(the reference's System class).
+"""Public API — the port of `orb_slam2_comment_tpu/models/system.py` (the
+reference's System class) for RGB-D, stereo and monocular input.
 
 `System(cfg)` wires tracking, the chunked local mapper, the keyframe
 database, relocalization and — with `enable_loop_closing` (the config's
 default, True) — the loop closer with its chunked background global BA.
-`track_rgbd(image, depth_map, timestamp)` auto-resets a map lost with at
-most 5 keyframes, tracks the frame and pumps one background-GBA chunk.
+`track_rgbd(image, depth_map, timestamp)`, `track_stereo(image_left,
+image_right, timestamp)` and `track_monocular(image, timestamp)`, each for
+its `cfg.sensor`, auto-reset a map lost with at most 5 keyframes, track
+the frame and pump one background-GBA chunk.
 
 The device is CUDA unless `device=` says otherwise; without a CUDA device
-`System(cfg)` raises rather than falling back to the CPU. Other sensors,
-localization mode, capacity growth and map save/load raise
-NotImplementedError.
+`System(cfg)` raises rather than falling back to the CPU. Localization
+mode, capacity growth and map save/load raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from orb_slam2_comment_tpu_torch.models.tracking import LOST, Tracker, check_sli
 from orb_slam2_comment_tpu_torch.ops import bow as bow_mod
 from orb_slam2_comment_tpu_torch.ops import geometry as geo
 from orb_slam2_comment_tpu_torch.ops import optim, ransac
-from orb_slam2_comment_tpu_torch.utils.config import SlamConfig, resolve_device
+from orb_slam2_comment_tpu_torch.utils.config import (
+    MONOCULAR, RGBD, STEREO, SlamConfig, resolve_device)
 
 # the port's copy of the reference's packaged vocabulary (byte-equal)
 VOC_ASSET = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -141,12 +143,28 @@ class System:
         if self.loop_closer is not None:
             self.loop_closer.pump_background()
 
-    def track_rgbd(self, image, depth_map, timestamp):
-        self._maybe_auto_reset()
-        out = self.tracker.track_rgbd_arrays(self.frame_id, timestamp, image, depth_map)
+    def _track(self, sensor: str, entry: str, *images_and_ts):
+        if self.cfg.sensor != sensor:
+            raise ValueError(f"a {sensor} frame for a {self.cfg.sensor!r} system")
+        self._maybe_auto_reset()   # may replace the tracker
+        out = getattr(self.tracker, entry)(self.frame_id, images_and_ts[-1],
+                                           *images_and_ts[:-1])
         self._pump_background()
         self.frame_id += 1
         return out
+
+    def track_rgbd(self, image, depth_map, timestamp):
+        return self._track(RGBD, "track_rgbd_arrays", image, depth_map, timestamp)
+
+    def track_stereo(self, image_left, image_right, timestamp):
+        return self._track(STEREO, "track_stereo_arrays", image_left, image_right,
+                           timestamp)
+
+    def track_monocular(self, image, timestamp):
+        """The reference extracts 2x features while not initialized
+        (Tracking.cc:243-247); this keeps one budget for every frame, as
+        the JAX package does."""
+        return self._track(MONOCULAR, "track_mono_arrays", image, timestamp)
 
     @property
     def trajectory(self):

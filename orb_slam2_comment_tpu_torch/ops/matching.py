@@ -1,5 +1,5 @@
 """Data association as masked Hamming-distance matrices — the port of
-`orb_slam2_comment_tpu/ops/matching.py` used by the RGB-D main path.
+`orb_slam2_comment_tpu/ops/matching.py`.
 
 Hamming distances come from one f32 product of +-1 bit vectors: the sums
 are integers below 2^9, exact in f32 with TF32 off. `argmin` returns the
@@ -90,6 +90,21 @@ def match_generic(dist, mask, max_dist: float, nn_ratio=None, mutual: bool = Fal
     if angles_a is not None:
         ok = rotation_consistency(angles_a, angles_b[best], ok)
     return MatchResult(idx=best, dist=d1, ok=ok)
+
+
+def match_window(feats_a, feats_b, radius: float = 100.0, max_dist: float = float(C.TH_LOW),
+                 nn_ratio: float = 0.9, check_rotation: bool = True) -> MatchResult:
+    """Windowed search for monocular initialization
+    (SearchForInitialization: windowSize 100, mfNNratio 0.9, level 0
+    only, mutual best, rotation check)."""
+    dist = hamming_from_packed(feats_a.desc, feats_b.desc)
+    dxy = feats_a.xy[:, None, :] - feats_b.xy[None, :, :]
+    close = torch.sum(dxy * dxy, dim=-1) <= radius * radius
+    lvl0 = (feats_a.octave[:, None] == 0) & (feats_b.octave[None, :] == 0)
+    mask = close & lvl0 & feats_a.valid[:, None] & feats_b.valid[None, :]
+    return match_generic(dist, mask, max_dist, nn_ratio, mutual=True,
+                         angles_a=feats_a.angle if check_rotation else None,
+                         angles_b=feats_b.angle)
 
 
 def match_projection(proj_xy, proj_valid, proj_desc, proj_octave, feats, radius,

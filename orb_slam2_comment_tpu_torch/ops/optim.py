@@ -802,3 +802,16 @@ def gba_result(prob: BAProblem, inv_sigma2_levels, K, bf, carry) -> BAResult:
     chi2 = _edge_chi2(r, inv_s2, comp)
     inlier = prob.obs_valid & (chi2 <= _chi2_th(prob.obs_stereo)) & (depth > 0)
     return BAResult(cam_T=geo.orthonormalize_T(cam_T), pts=pts, obs_inlier=inlier, cost=cost)
+
+
+def global_bundle_adjustment(prob: BAProblem, inv_sigma2_levels, K, bf,
+                             iters: int = C.GBA_ITERS, cg_iters: int = 40,
+                             robust_iters: int = 5) -> BAResult:
+    """Full-map BA in one call (Optimizer::GlobalBundleAdjustemnt): the
+    chunked GBA's carry, `iters` of its LM steps, its final
+    classification. The monocular initializer runs it on the two-keyframe
+    map."""
+    carry = gba_init_carry(prob, inv_sigma2_levels, K, bf)
+    carry = gba_chunk(prob, inv_sigma2_levels, carry, 0, K, bf, n_iters=iters,
+                      cg_iters=cg_iters, robust_iters=robust_iters)
+    return gba_result(prob, inv_sigma2_levels, K, bf, carry)

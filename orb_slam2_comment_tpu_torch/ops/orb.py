@@ -430,7 +430,8 @@ def _patch_starts(xy_all, cfg: ORBConfig, shape) -> torch.Tensor:
 
 
 def _extract_impl(image: torch.Tensor, cfg: ORBConfig, shape):
-    """[H, W] f32 image -> (FrameFeatures, pyramid list)."""
+    """[H, W] f32 image -> (FrameFeatures, pyramid list, level stack of
+    `_level_stack`, which stereo matching reads again)."""
     h, w = shape
     dev = image.device
     sizes = cfg.level_sizes(h, w)
@@ -467,9 +468,10 @@ def _extract_impl(image: torch.Tensor, cfg: ORBConfig, shape):
         desc=desc_all,
         valid=torch.cat(valid_all),
     )
-    return feats, pyramid
+    return feats, pyramid, stack
 
 
 def extract(image: torch.Tensor, cfg: ORBConfig):
-    """Extract features from a [H, W] grayscale image (0..255)."""
-    return _extract_impl(image.to(torch.float32), cfg, tuple(image.shape))
+    """Extract features from a [H, W] grayscale image (0..255). Returns
+    (FrameFeatures, pyramid list)."""
+    return _extract_impl(image.to(torch.float32), cfg, tuple(image.shape))[:2]

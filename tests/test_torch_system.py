@@ -155,8 +155,8 @@ def test_slice_refuses_what_it_does_not_port():
     from orb_slam2_comment_tpu_torch.utils.config import SlamConfig
 
     base = dict(_cfg_kw(), max_keyframes=8, max_points=1024)
-    for kw in (dict(sensor="stereo"), dict(grow_capacity=True), dict(chunked_mapper=False),
-               dict(localization_only=True), dict(sensor="monocular")):
+    for kw in (dict(grow_capacity=True), dict(chunked_mapper=False),
+               dict(localization_only=True)):
         with pytest.raises(NotImplementedError):
             System(SlamConfig(**dict(base, **kw)), device="cpu")
 
