@@ -13,7 +13,7 @@ the same capacities with 2000 observations per keyframe). Each kernel is
 timed three ways: the span of one call (`ms`), 100 calls back to back
 (`per_launch_ms`) and calls replayed from a CUDA graph (`device_ms`, no
 host dispatch), beside its plain version, its bound and, for K2, the one
-PyTorch call that computes the same function. Then it drives five paths
+PyTorch call that computes the same function. Then it drives six paths
 of the default `System(cfg, device="cuda")` (loop closing on, as bench.py
 builds it), each with the launch counts set to 0 just before it and read
 just after:
@@ -35,6 +35,15 @@ just after:
   mono   the 14 frames of tests/test_loop_closing.py:53-77 at the bench
          widths through System.track_monocular: the two-view initializer
          succeeds, later frames track, a rerun is bit-identical.
+  facade the rest of the System API at the bench config: frames 0-59
+         mapped, the TUM/KITTI/keyframe savers read back, save_map;
+         localization mode over frames 60-89 (no keyframe, no local BA);
+         visual odometry over frames 90-99 with no map point matchable
+         (its K3 problem is held to the plain version afterwards); the saved
+         map loaded into a new System, relocalized (in localization mode)
+         and mapped again over frames 60-79; the orbit closed with the
+         synchronous global BA; the packaged vocabulary read back from
+         ORBvoc.txt text.
 
     python3 chip_smoke.py [--frames N] [--profile FILE] [--kernels-only]
 
@@ -63,7 +72,7 @@ _K4 = ("orb_slam2_comment_tpu_torch/csrc/lba_build.cu",
 # the paths at 480x640 and 1000 features, and the stereo path at 376x1241
 # and 2000 features: each row reads its kernel's launch count on the paths
 # at its shapes
-_SMALL = ("main", "reloc", "loop", "mono")
+_SMALL = ("main", "reloc", "loop", "mono", "facade")
 KERNEL_ROWS = [
     # name, (source, replaced Pallas call site), kernel counted, paths counted
     ("fast_nms", _K1, "fast_nms", _SMALL),
@@ -75,6 +84,9 @@ KERNEL_ROWS = [
     ("gather_patches@2000", _K2, "gather_patches", ("stereo",)),
     ("pose_lm@2000", _K3, "pose_lm", ("stereo",)),
     ("lba_build@stereo", _K4, "lba_build", ("stereo",)),
+    # K3 on the first visual-odometry frame's problem; counts the facade
+    # path's VO frames (a subset of the pose_lm row's launches)
+    ("pose_lm@vo", _K3, "pose_lm", ("vo",)),
 ]
 K1_K4 = ("fast_nms", "gather_patches", "pose_lm", "lba_build")
 
@@ -1132,6 +1144,222 @@ def mono_path(cfg, frames, dev):
                                    n_live_points=404))
 
 
+def centre_errors(poses, gts, gt0):
+    """Camera-centre distances to the truth, in the map's world (camera 0
+    of the first mapped frame, whose true pose is gt0)."""
+    from orb_slam2_comment_tpu_torch.utils.trajectory import camera_centers
+
+    aligned = [g @ np.linalg.inv(gt0) for g in gts]
+    return np.linalg.norm(camera_centers(poses, False) - camera_centers(aligned, False), axis=1)
+
+
+def tum_poses(rows):
+    """Tcw from 'ts tx ty tz qx qy qz qw' rows (camera-to-world in the file)."""
+    from orb_slam2_comment_tpu_torch.ops import geometry as geo
+
+    Rwc = geo.quat_to_rot(torch.from_numpy(rows[:, 4:8])).numpy().astype(np.float64)
+    Twc = np.tile(np.eye(4), (len(rows), 1, 1))
+    Twc[:, :3, :3] = Rwc
+    Twc[:, :3, 3] = rows[:, 1:4]
+    return list(np.linalg.inv(Twc))
+
+
+def track_ok(system, frames, what, secs=None):
+    """Track each frame through the façade; each must come back OK."""
+    outs = []
+    for i, f in enumerate(frames):
+        t0 = time.perf_counter()
+        out = system.track_rgbd(f["image"], f["depth"], f["timestamp"])
+        torch.cuda.synchronize()
+        if secs is not None:
+            secs.append(time.perf_counter() - t0)
+        if out.state != 1:
+            raise AssertionError(f"{what} frame {i}: tracking state {out.state}")
+        outs.append(out)
+    return outs
+
+
+def facade_path(cfg, frames, orbit, loop, dev, vo_problem, per_path):
+    """The rest of the System API on bench-shaped frames (see the module
+    docstring). Keeps the first VO frame's pose_optimize inputs in
+    `vo_problem` and the VO frames' launch counts in per_path['vo']."""
+    import tempfile
+
+    from orb_slam2_comment_tpu_torch.models.system import VOC_ASSET, System
+    from orb_slam2_comment_tpu_torch.ops import bow, lm_cuda, optim
+    from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
+
+    gt0 = frames[0]["Tcw_gt"]
+    res, segs = {}, {}
+    system = make_system(cfg, dev)
+    track_ok(system, frames[:60], "facade map")
+    system.shutdown()
+    n_kfs = system.tracker.n_kfs
+    with tempfile.TemporaryDirectory() as d:
+        system.save_trajectory_tum(f"{d}/tum.txt")
+        system.save_trajectory_kitti(f"{d}/kitti.txt")
+        system.save_keyframe_trajectory_tum(f"{d}/kf.txt")
+        tum, kitti = np.loadtxt(f"{d}/tum.txt", ndmin=2), np.loadtxt(f"{d}/kitti.txt", ndmin=2)
+        kf = np.loadtxt(f"{d}/kf.txt", ndmin=2)
+        n_valid = int(system.tracker.map.kf_valid.sum())
+        if not (tum.shape == (60, 8) and kitti.shape == (60, 12) and kf.shape == (n_valid, 8)):
+            raise AssertionError(f"savers: tum {tum.shape}, kitti {kitti.shape}, keyframes "
+                                 f"{kf.shape} for {n_valid} valid keyframes")
+        if not np.allclose(kitti[:, [3, 7, 11]], tum[:, 1:4], atol=1e-6):
+            raise AssertionError("the KITTI and TUM files disagree on the camera centres")
+        ate_tum = float(np.sqrt(np.mean(centre_errors(tum_poses(tum),
+                                                      [f["Tcw_gt"] for f in frames[:60]],
+                                                      gt0) ** 2)))
+        if not ate_tum < 0.02:
+            raise AssertionError(f"facade: ATE of the TUM file {ate_tum} m")
+        t0 = time.perf_counter()
+        system.save_map(f"{d}/map.npz")
+        res.update(n_kfs=n_kfs, saved_frames=60, tum_ate_m=ate_tum, keyframe_lines=len(kf),
+                   save_map_s=time.perf_counter() - t0)
+
+        # localization mode: no keyframe, so no local BA
+        system.activate_localization_mode()
+        c0, loc_s = read_counts(), []
+        track_ok(system, frames[60:90], "localization", loc_s)
+        segs["localization"] = {k: v - c0[k] for k, v in read_counts().items()}
+        if system.tracker.n_kfs != n_kfs:
+            raise AssertionError(f"localization mode made keyframes: {n_kfs} -> "
+                                 f"{system.tracker.n_kfs}")
+        c = segs["localization"]
+        if not (c["fast_nms"] == c["gather_patches"] == 30 and c["pose_lm"] >= 30
+                and c["lba_build"] == 0):
+            raise AssertionError(f"localization frames launched {c}")
+
+        # visual odometry: no map point matchable
+        t = system.tracker
+        t.map = t.map.replace(pt_valid=torch.zeros_like(t.map.pt_valid))
+        calls, po = [], optim.pose_optimize
+
+        def recording(*a, **k):
+            calls.append((a, k))
+            return po(*a, **k)
+
+        optim.pose_optimize = recording
+        c0, vo_s, vo_err = read_counts(), [], []
+        try:
+            for j, f in enumerate(frames[90:100]):
+                calls.clear()
+                out = track_ok(system, [f], "VO", vo_s)[0]
+                if not system.tracker.vo:
+                    raise AssertionError(f"VO frame {90 + j}: the VO flag is not set")
+                if j == 0:   # the mbVO solve is the frame's last pose_optimize
+                    vo_problem.append(calls[-1])
+                vo_err.append(centre_errors([np.asarray(out.Tcw, np.float64)], [f["Tcw_gt"]],
+                                            gt0)[0])
+                if not vo_err[-1] < 0.08:
+                    raise AssertionError(f"VO frame {90 + j} is {vo_err[-1]} m off")
+        finally:
+            optim.pose_optimize = po
+        per_path["vo"] = {k: v - c0[k] for k, v in read_counts().items()}
+        segs["vo"] = per_path["vo"]
+        res.update(vo_max_err_m=float(max(vo_err)))
+
+        # the saved map in a new System: relocalize in localization mode (a
+        # LOST map of <= 5 keyframes is otherwise auto-reset, as in the
+        # reference), then map again
+        s2 = make_system(cfg, dev)
+        t0 = time.perf_counter()
+        s2.load_map(f"{d}/map.npz")
+        res["load_map_s"] = time.perf_counter() - t0
+        c0, b0, ld_s = read_counts(), lm_cuda.pose_optimize_lm.batched_launches, []
+        s2.activate_localization_mode()
+        outs = track_ok(s2, frames[60:61], "after load_map", ld_s)
+        if lm_cuda.pose_optimize_lm.batched_launches == b0:
+            raise AssertionError("the first frame after load_map did not relocalize")
+        s2.deactivate_localization_mode()
+        outs += track_ok(s2, frames[61:80], "after load_map", ld_s)
+        if s2.n_resets:
+            raise AssertionError("the loaded map was reset")
+        segs["load"] = {k: v - c0[k] for k, v in read_counts().items()}
+        missing = [k for k in K1_K4 if segs["load"][k] <= 0]
+        if missing:
+            raise AssertionError(f"after load_map, kernels never launched: {missing}")
+        ate_load = float(np.sqrt(np.mean(centre_errors(
+            [np.asarray(o.Tcw, np.float64) for o in outs],
+            [f["Tcw_gt"] for f in frames[60:80]], gt0) ** 2)))
+        if not ate_load < 0.02:
+            raise AssertionError(f"after load_map: ATE {ate_load} m")
+        res.update(load_n_kfs=s2.tracker.n_kfs, load_ate_m=ate_load,
+                   reloc_after_load_ms=ld_s[0] * 1e3,
+                   after_load_p50_ms=float(np.median(ld_s[1:]) * 1e3))
+
+        # the packaged vocabulary as ORBvoc.txt text
+        voc = bow.load_vocabulary(VOC_ASSET, dev)
+        bow.save_orb_vocab_text(f"{d}/voc.txt", voc)
+        tv = bow.load_orb_vocab(f"{d}/voc.txt", levels_up=voc.depth - voc.group_depth,
+                                device=dev)
+        m = system.tracker.map
+        a, b = bow.transform(voc, m.kf_desc[0], m.kf_feat_valid[0]), bow.transform(
+            tv, m.kf_desc[0], m.kf_feat_valid[0])
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError("the text vocabulary gives other words or groups")
+        st = System(cfg, vocabulary_path=f"{d}/voc.txt", device=dev)
+        if not (st.voc.node_word.device == voc.node_word.device
+                and st.voc.n_words == voc.n_words):
+            raise AssertionError("System did not read the text vocabulary onto its device")
+        res.update(text_vocab_words=int((a[0] >= 0).sum()),
+                   text_vocab_bow_max_diff=(a[2] - b[2]).abs().max().item())
+
+    # the orbit with the global BA solved inside the closing frame
+    close = loop["closing_frame"]
+    s3 = make_system(cfg, dev)
+    s3.loop_closer.gba_background = False
+    sec, poses = [], []
+    for i, f in enumerate(orbit[:close + 5]):
+        poses.append(np.asarray(track_ok(s3, [f], "sync-GBA orbit", sec)[0].Tcw, np.float64))
+        if i == close:
+            lc = s3.loop_closer
+            if not (s3.n_loops == 1 and lc.n_gba_applied == 1 and lc.n_gba_started == 0
+                    and lc._bg is None):
+                raise AssertionError(f"closing frame {i}: loops {s3.n_loops}, GBA applied "
+                                     f"{lc.n_gba_applied}, started {lc.n_gba_started}")
+    pair = [int(x) for x in s3.loop_closer.loop_edges[0][:2]][::-1]
+    if pair != loop["loop_pair"]:
+        raise AssertionError(f"synchronous GBA closed {pair}, the background run {loop['loop_pair']}")
+    ate_sync = ate_rmse(poses, [f["Tcw_gt"] for f in orbit[:close + 5]])
+    if not ate_sync < 0.10:
+        raise AssertionError(f"synchronous-GBA orbit ATE {ate_sync} m")
+    n_frames = 60 + 30 + 10 + 20 + close + 5
+
+    def p(xs, q):
+        return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+    res.update(frames_run=n_frames, loc_p50_ms=p(loc_s, 50), loc_p90_ms=p(loc_s, 90),
+               vo_p50_ms=p(vo_s, 50), vo_p90_ms=p(vo_s, 90), sync_gba_loop_pair=pair,
+               sync_gba_closing_frame=close, sync_gba_closing_frame_ms=sec[close] * 1e3,
+               sync_gba_ate_m=ate_sync, segment_launches=segs)
+    return res
+
+
+def check_k3_vo(cfg, call):
+    """K3 on the first VO frame's pose_optimize inputs against its plain
+    version: pose within check_k3's 5e-3, <= 5 inliers apart."""
+    from orb_slam2_comment_tpu_torch.ops import lm_cuda
+
+    args, kw = call
+    ker = lm_cuda.pose_optimize_lm(*args, **kw)
+    pl = lm_cuda.pose_optimize_plain(*args, **kw)
+    dT = (ker.Tcw - pl.Tcw).abs().max().item()
+    dmask = int((ker.inliers != pl.inliers).sum())
+    if not (dT < 5e-3 and dmask <= 5):
+        raise AssertionError(f"K3@vo disagrees: |dT|={dT}, {dmask} inlier flags differ")
+    res = dict(max_abs_err=dT, inlier_flags_differing=dmask, library_ms=None,
+               edges=int(args[5].sum()),
+               **timed(lambda: lm_cuda.pose_optimize_lm(*args, **kw),
+                       lambda: lm_cuda.pose_optimize_plain(*args, **kw)),
+               **k3_bound(args, cfg))
+    print(f"# K3 pose_lm@vo: {res['edges']} valid edges of {args[1].shape[0]}, |dT|={dT:.2e}, "
+          f"{dmask} inlier flags differ (inliers {int(ker.n_inliers)}); {res['ms']:.4f} ms, "
+          f"{res['device_ms']:.4f} from a graph (plain {res['plain_ms']:.4f}, bound "
+          f"{res['bound_ms']:.6f})", flush=True)
+    return res
+
+
 def drive(name, fn, path_kernels, per_path):
     """Run one path with the launch counts set to 0 just before it and read
     just after; every kernel the path runs must have launched."""
@@ -1188,7 +1416,7 @@ def main():
 
     cfg, scfg, mcfg = bench_config(), stereo_config(), mono_config()
     t0 = time.perf_counter()
-    frames = render_frames(max(args.frames, 80))
+    frames = render_frames(max(args.frames, 100))
     sframes = render_stereo()
     orbit, mframes = ([], []) if args.kernels_only else (render_orbit(), render_mono())
     print(f"# rendered {len(frames)} + {len(sframes)} stereo + {len(orbit)} + {len(mframes)} "
@@ -1210,10 +1438,11 @@ def main():
     if args.kernels_only:
         return 0
 
-    per_path, frames_run = {}, {}
+    per_path, frames_run, results = {}, {}, {}
 
     def run(name, fn, kernels):
-        frames_run[name] = drive(name, fn, kernels, per_path).get("frames_run")
+        results[name] = drive(name, fn, kernels, per_path)
+        frames_run[name] = results[name].get("frames_run")
 
     run("main", lambda: main_path(cfg, frames[:args.frames], dev, args.profile), K1_K4)
     run("reloc", lambda: reloc_path(cfg, frames, dev), K1_K4 + ("pose_lm_batched",))
@@ -1221,8 +1450,13 @@ def main():
     windows = []
     run("stereo", lambda: stereo_path(scfg, sframes, dev, windows), K1_K4)
     run("mono", lambda: mono_path(mcfg, mframes, dev), K1_K4)
+    vo_problem = []
+    run("facade", lambda: facade_path(cfg, frames, orbit, results["loop"], dev, vo_problem,
+                                      per_path), K1_K4)
+    frames_run["vo"] = 10
     for path, k, per in (("main", "fast_nms", 1), ("stereo", "fast_nms", 2),
-                         ("stereo", "gather_patches", 2), ("mono", "fast_nms", 1)):
+                         ("stereo", "gather_patches", 2), ("mono", "fast_nms", 1),
+                         ("facade", "fast_nms", 1), ("facade", "gather_patches", 1)):
         if per_path[path][k] != per * frames_run[path]:
             raise AssertionError(f"{k} launched {per_path[path][k]} times over "
                                  f"{frames_run[path]} {path} frames, not {per} per frame")
@@ -1230,6 +1464,8 @@ def main():
     # K4 on the stereo run's largest local-BA window
     checks.append(check_k4_window(max(windows, key=lambda w: int(w.prob.obs_valid.sum())),
                                   scfg.K, scfg.bf))
+    # K3 on the first visual-odometry frame's problem
+    checks.append(check_k3_vo(cfg, vo_problem[0]))
 
     rows = []
     for (name, (src, rep), kern, paths), res in zip(KERNEL_ROWS, checks, strict=True):

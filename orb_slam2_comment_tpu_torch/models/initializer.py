@@ -175,6 +175,7 @@ class MonocularInitializer:
         frame.Tcw = m.kf_pose[1]
         frame.assoc = torch.from_numpy(obs1).to(dev)
         tracker.last_Tcw = m.kf_pose[1].cpu().numpy()
+        tracker.last_frame = frame
         for cb in tracker.new_kf_callbacks:
             cb(0)
             cb(1)

@@ -190,6 +190,19 @@ def _build_gba_problem(m: MapState, cfg: SlamConfig):
     return prob, 1.0 / _sigma2(cfg, dev)
 
 
+def _global_ba_kernel(m: MapState, cfg: SlamConfig) -> MapState:
+    """Synchronous full-map BA after a loop closure
+    (RunGlobalBundleAdjustment, src/LoopClosing.cc:645-737) with the
+    monolithic solver: every valid camera but keyframe 0 and every valid
+    point take the result."""
+    kmax = m.kf_pose.shape[0]
+    prob, inv_s2 = _build_gba_problem(m, cfg)
+    res = optim.global_bundle_adjustment(prob, inv_s2, cfg.K, cfg.bf, iters=C.GBA_ITERS)
+    write_cam = m.kf_valid & (torch.arange(kmax, device=m.kf_valid.device) != 0)
+    return m.replace(kf_pose=torch.where(write_cam[:, None, None], res.cam_T, m.kf_pose),
+                     pt_pos=torch.where(m.pt_valid[:, None], res.pts, m.pt_pos))
+
+
 def _apply_gba(m: MapState, cam_T, pts, snap_kf, snap_pt):
     """Write a GBA result into the CURRENT map with the reference's
     catch-up (src/LoopClosing.cc:676-737): KFs created after the snapshot
@@ -328,6 +341,10 @@ class LoopCloser:
     n_detections: int = 0           # queued detections harvested
     n_gba_started: int = 0
     n_gba_applied: int = 0
+    # the full-map BA after a correction (LoopClosing.cc:575-579): chunked
+    # in the background, one LM iteration per frame, or with
+    # gba_background=False solved inside the closing frame
+    gba_background: bool = True
     # accepted loop edges (a, b, S_ba) — KeyFrame::AddLoopEdge; they stay
     # in every later essential graph (src/Optimizer.cc:902-910)
     loop_edges: list = field(default_factory=list)
@@ -568,7 +585,12 @@ class LoopCloser:
                                           m.kf_pose))
         trk.map = m
         # a new correction replaces any GBA in flight (src/LoopClosing.cc:410-423)
-        self._start_background_gba(m)
+        self._bg = None
+        if self.gba_background:
+            self._start_background_gba(m)
+        else:
+            trk.map = m = _global_ba_kernel(m, cfg)
+            self.n_gba_applied += 1
         # the tracker's pose jumps with the map
         self._set_tracker_pose(m.kf_pose[kf_id].cpu().numpy())
 

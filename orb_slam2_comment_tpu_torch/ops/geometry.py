@@ -1,5 +1,6 @@
-"""SE(3) math, the pinhole/stereo camera model and robust kernels — the
-part of `orb_slam2_comment_tpu/ops/geometry.py` the RGB-D main path calls.
+"""SE(3) math, the pinhole/stereo camera model, robust kernels and the
+quaternions of the trajectory savers — the part of
+`orb_slam2_comment_tpu/ops/geometry.py` the port calls.
 
 Conventions as in the reference: 4x4 row-major `Tcw` (world -> camera),
 se3 tangent `[rho, phi]`, optimizer updates by LEFT multiplication
@@ -167,6 +168,31 @@ def sim3_log(S):
     V = torch.stack([v_col(i) for i in range(3)], dim=-1)
     rho = torch.linalg.solve_ex(V, t[..., None])[0][..., 0]   # no host sync on CUDA
     return torch.cat([rho, phi, sigma[..., None]], dim=-1)
+
+
+def rot_to_quat(R):
+    """Rotation matrix -> quaternion (x, y, z, w), Shepperd's method: the
+    branch of the largest of the trace and the three diagonal entries."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def s_of(v):
+        return torch.sqrt(torch.clamp(v, min=1e-12)) * 2
+
+    s = s_of(tr + 1.0)
+    case0 = torch.stack([(m21 - m12) / s, (m02 - m20) / s, (m10 - m01) / s, 0.25 * s], dim=-1)
+    s = s_of(1.0 + m00 - m11 - m22)
+    case1 = torch.stack([0.25 * s, (m01 + m10) / s, (m02 + m20) / s, (m21 - m12) / s], dim=-1)
+    s = s_of(1.0 + m11 - m00 - m22)
+    case2 = torch.stack([(m01 + m10) / s, 0.25 * s, (m12 + m21) / s, (m02 - m20) / s], dim=-1)
+    s = s_of(1.0 + m22 - m00 - m11)
+    case3 = torch.stack([(m02 + m20) / s, (m12 + m21) / s, 0.25 * s, (m10 - m01) / s], dim=-1)
+    q = torch.where((tr > 0)[..., None], case0,
+                    torch.where(((m00 >= m11) & (m00 >= m22))[..., None], case1,
+                                torch.where((m11 >= m22)[..., None], case2, case3)))
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
 
 
 def quat_to_rot(q):

@@ -1,19 +1,54 @@
-"""Trajectory evaluation: camera centres, ATE RMSE and Umeyama alignment.
+"""Trajectory export and evaluation — the port of the JAX package's
+`utils/trajectory.py`.
 
-The port's own copy of the evaluation part of the JAX package's
-`utils/trajectory.py` (its TUM/KITTI writers are not ported yet);
-tests/test_torch_system.py holds the two equal.
+Byte-format-compatible writers for the reference's savers:
+- save_tum  <- System::SaveTrajectoryTUM (src/System.cc:322-377):
+  'timestamp tx ty tz qx qy qz qw' of the camera-to-world transform.
+- save_kitti <- System::SaveTrajectoryKITTI (src/System.cc:419-472):
+  3x4 row-major camera-to-world matrix per line.
+
+The quaternion comes from the port's own `geometry.rot_to_quat` in f32, as
+the JAX package computes it; the evaluation part (camera centres, ATE,
+Umeyama) is a copy that tests/test_torch_system.py holds equal.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from orb_slam2_comment_tpu_torch.ops.geometry import rot_to_quat
 
 
 def _twc(Tcw: np.ndarray):
     R = Tcw[:3, :3]
     t = Tcw[:3, 3]
     return R.T, -R.T @ t
+
+
+def _rot_to_quat(R):
+    # (x, y, z, w), matching the TUM convention used by the reference's
+    # Converter::toQuaternion output ordering (System.cc:371-374)
+    return rot_to_quat(torch.as_tensor(np.asarray(R, np.float32))).numpy()
+
+
+def save_tum(path: str, timestamps, poses_cw):
+    with open(path, "w") as f:
+        for ts, Tcw in zip(timestamps, poses_cw):
+            Rwc, twc = _twc(np.asarray(Tcw))
+            q = _rot_to_quat(Rwc)
+            f.write(
+                f"{ts:.6f} {twc[0]:.7f} {twc[1]:.7f} {twc[2]:.7f} "
+                f"{q[0]:.7f} {q[1]:.7f} {q[2]:.7f} {q[3]:.7f}\n"
+            )
+
+
+def save_kitti(path: str, poses_cw):
+    with open(path, "w") as f:
+        for Tcw in poses_cw:
+            Rwc, twc = _twc(np.asarray(Tcw))
+            M = np.concatenate([Rwc, twc[:, None]], axis=1)
+            f.write(" ".join(f"{v:.9e}" for v in M.reshape(-1)) + "\n")
 
 
 def camera_centers(poses_cw, align_first=True):

@@ -2,7 +2,9 @@
 level), K3 (pose-only LM) and K4 (local-BA build), with their wrappers,
 kept only so that chip_smoke.py can time each redesigned kernel against
 its predecessor in one run, in turns. The port never imports this
-package.
+package. Beside it, two tools for a GPU: `k1_variants.py` times build
+variants of K1, and `trace_mono.py` runs the monocular path on the CPU and
+the card in lockstep and prints where the two part.
 
 `library()` builds `prev_kernels/*.cu` with
 `orb_slam2_comment_tpu_torch._build.compile_library` into the port's build

@@ -151,14 +151,18 @@ def test_orbit_closes_the_same_loop_as_jax():
 
 
 def test_slice_refuses_what_it_does_not_port():
+    """Capacity growth, the monolithic mapper and the staged ladder raise;
+    localization-only mode is admitted."""
     from orb_slam2_comment_tpu_torch.models.system import System
     from orb_slam2_comment_tpu_torch.utils.config import SlamConfig
 
     base = dict(_cfg_kw(), max_keyframes=8, max_points=1024)
     for kw in (dict(grow_capacity=True), dict(chunked_mapper=False),
-               dict(localization_only=True)):
+               dict(fused_tracking=False)):
         with pytest.raises(NotImplementedError):
             System(SlamConfig(**dict(base, **kw)), device="cpu")
+    assert System(SlamConfig(**dict(base, localization_only=True)),
+                  device="cpu").cfg.localization_only
 
 
 def test_system_needs_cuda_unless_told_cpu():
@@ -305,8 +309,56 @@ def _same_vocabulary():
         assert a.read() == b.read()
 
 
+def _same_vocab_training():
+    from orb_slam2_comment_tpu.ops import bow as J
+    from orb_slam2_comment_tpu_torch.ops import bow as T
+
+    r = np.random.default_rng(5)
+    desc = r.integers(0, 2 ** 32, (600, 8), dtype=np.uint64).astype(np.uint32)
+    for kw in (dict(k=8, depth=3, seed=0), dict(k=5, depth=2, levels_up=1, seed=3, iters=4)):
+        a, b = J.train_vocabulary(desc, **kw), T.train_vocabulary(desc, **kw)
+        for f in ("children", "node_word", "word_weight"):
+            np.testing.assert_array_equal(getattr(b, f).numpy(), np.asarray(getattr(a, f)), f)
+        np.testing.assert_array_equal(b.node_desc.numpy().view(np.uint32), np.asarray(a.node_desc))
+        assert (b.group_depth, b.depth, b.k) == (a.group_depth, a.depth, a.k)
+    bits = r.integers(0, 2, (7, 256)).astype(np.uint8)
+    np.testing.assert_array_equal(T._majority(bits), J._majority(bits))
+    np.testing.assert_array_equal(T._hamming_np(bits, bits[::-1]), J._hamming_np(bits, bits[::-1]))
+
+
+def _same_vocab_text():
+    import tempfile
+
+    from orb_slam2_comment_tpu.ops import bow as J
+    from orb_slam2_comment_tpu_torch.ops import bow as T
+
+    r = np.random.default_rng(6)
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, "voc.txt")
+        with open(p, "w") as f:
+            f.write("4 2 0 0\n")
+            for i in range(20):
+                row = [i // 4, int(i >= 4), *r.integers(0, 256, 32), f"{r.random():.6f}"]
+                f.write(" ".join(str(v) for v in row) + "\n")
+        # the port's vectorized tokenizer against the reference's line parser
+        for x, y in zip(J._parse_orb_vocab_py(p), T._parse_orb_vocab(p), strict=True):
+            np.testing.assert_array_equal(np.asarray(y), np.asarray(x))
+        with open(p) as f:
+            lines = f.readlines()
+        # a short node line, and a token that is no number at the start of
+        # the third node (where the number stream would stop at 2 x 35), are
+        # refused rather than read misaligned or cut short
+        cut = lines[3]
+        for bad in (lines + ["1 0 5\n"], lines[:3] + ["x" + cut[cut.index(" "):]] + lines[4:]):
+            with open(p, "w") as f:
+                f.writelines(bad)
+            with pytest.raises(ValueError):
+                T._parse_orb_vocab(p)
+
+
 @pytest.mark.parametrize("check", [_same_constants, _same_frames, _same_trajectory_eval,
-                                   _same_vocabulary], ids=lambda f: f.__name__[6:])
+                                   _same_vocabulary, _same_vocab_training, _same_vocab_text],
+                         ids=lambda f: f.__name__[6:])
 def test_port_copies_equal_jax(check):
     """The port's own copies of the JAX package's numpy-only modules and of
     its vocabulary stay equal to the originals."""
