@@ -13,7 +13,7 @@ the same capacities with 2000 observations per keyframe). Each kernel is
 timed three ways: the span of one call (`ms`), 100 calls back to back
 (`per_launch_ms`) and calls replayed from a CUDA graph (`device_ms`, no
 host dispatch), beside its plain version, its bound and, for K2, the one
-PyTorch call that computes the same function. Then it drives six paths
+PyTorch call that computes the same function. Then it drives eight paths
 of the default `System(cfg, device="cuda")` (loop closing on, as bench.py
 builds it), each with the launch counts set to 0 just before it and read
 just after:
@@ -44,6 +44,20 @@ just after:
          and mapped again over frames 60-79; the orbit closed with the
          synchronous global BA; the packaged vocabulary read back from
          ORBvoc.txt text.
+  grow   the orbit of tests/test_capacity.py's auto-grow test (60 frames)
+         at the bench widths with capacity growth on, from the smallest
+         tiers (16 keyframes, 8192 points; caps 64 and 32768): growth
+         fires, every component agrees on the new tier, K1-K4 launch after
+         it, the trajectory error is small and a rerun is bit-identical;
+  desk   the 90-frame head of tools/make_datasets.py's desk sequence,
+         rendered into data/ by the port's renderer (in a subprocess, while
+         the kernels build), run through the port's run_dataset driver on
+         its settings.yaml (the default SlamConfig: growth and loop closing
+         on) with prestaged frames and 2 runs: ATE < 15 mm.
+
+K4 is also held to its plain version on every local-BA window of the
+stereo and grow paths, and its worst field error is printed against the
+active observations per window camera.
 
     python3 chip_smoke.py [--frames N] [--profile FILE] [--kernels-only]
 
@@ -53,7 +67,10 @@ CUDA device is present. The last stdout line is
 """
 
 import argparse
+import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -72,7 +89,7 @@ _K4 = ("orb_slam2_comment_tpu_torch/csrc/lba_build.cu",
 # the paths at 480x640 and 1000 features, and the stereo path at 376x1241
 # and 2000 features: each row reads its kernel's launch count on the paths
 # at its shapes
-_SMALL = ("main", "reloc", "loop", "mono", "facade")
+_SMALL = ("main", "reloc", "loop", "mono", "facade", "grow", "desk")
 KERNEL_ROWS = [
     # name, (source, replaced Pallas call site), kernel counted, paths counted
     ("fast_nms", _K1, "fast_nms", _SMALL),
@@ -1014,8 +1031,6 @@ def render_stereo(n_frames=30):
 
 def mono_config():
     """bench.py's widths and capacities, monocular."""
-    import dataclasses
-
     return dataclasses.replace(bench_config(), sensor="monocular", depth_map_factor=1.0)
 
 
@@ -1342,12 +1357,7 @@ def check_k3_vo(cfg, call):
     from orb_slam2_comment_tpu_torch.ops import lm_cuda
 
     args, kw = call
-    ker = lm_cuda.pose_optimize_lm(*args, **kw)
-    pl = lm_cuda.pose_optimize_plain(*args, **kw)
-    dT = (ker.Tcw - pl.Tcw).abs().max().item()
-    dmask = int((ker.inliers != pl.inliers).sum())
-    if not (dT < 5e-3 and dmask <= 5):
-        raise AssertionError(f"K3@vo disagrees: |dT|={dT}, {dmask} inlier flags differ")
+    ker, dT, dmask = k3_agrees(call, "K3@vo")
     res = dict(max_abs_err=dT, inlier_flags_differing=dmask, library_ms=None,
                edges=int(args[5].sum()),
                **timed(lambda: lm_cuda.pose_optimize_lm(*args, **kw),
@@ -1358,6 +1368,244 @@ def check_k3_vo(cfg, call):
           f"{res['device_ms']:.4f} from a graph (plain {res['plain_ms']:.4f}, bound "
           f"{res['bound_ms']:.6f})", flush=True)
     return res
+
+
+def k3_agrees(call, what):
+    """K3 on one recorded pose_optimize call against its plain version:
+    pose within check_k3's 5e-3, <= 5 inlier flags apart. Returns (kernel
+    result, |dT|, flags differing)."""
+    from orb_slam2_comment_tpu_torch.ops import lm_cuda
+
+    args, kw = call
+    ker = lm_cuda.pose_optimize_lm(*args, **kw)
+    pl = lm_cuda.pose_optimize_plain(*args, **kw)
+    dT = (ker.Tcw - pl.Tcw).abs().max().item()
+    dmask = int((ker.inliers != pl.inliers).sum())
+    if not (dT < 5e-3 and dmask <= 5):
+        raise AssertionError(f"{what} disagrees: |dT|={dT}, {dmask} inlier flags differ")
+    return ker, dT, dmask
+
+
+def k4_density(windows, K, BF, what):
+    """K4 against its plain version on every captured local-BA window, at
+    the window's start (lba_init, robust), each field within 1e-3 relative.
+    Returns [(active observations per valid window camera, worst field rel
+    err)] in window order, and prints the curve with the slope of log(err)
+    over log(observations per camera)."""
+    from orb_slam2_comment_tpu_torch.ops import lba_cuda, optim
+
+    curve = []
+    for prep in windows:
+        prob, inv = prep.prob, prep.inv_sigma2_levels
+        cam_T, pts, *_, obs_ok = optim.lba_init(prob, inv, K, BF)
+        sk = lba_cuda.build_system(prep, cam_T, pts, obs_ok, True, K, BF)
+        sp = optim.build_system_plain(prob, inv, prep.F, cam_T, pts, obs_ok, True, K, BF)
+        n_cam = max(int(prob.cam_valid.sum()), 1)
+        curve.append((int(obs_ok.sum()) / n_cam, k4_field_err(sp, sk, f"K4 on a {what} window")))
+    x = np.asarray([c[0] for c in curve])
+    y = np.asarray([c[1] for c in curve])
+    keep = (y > 0) & (x > 0)
+    slope = (float(np.polyfit(np.log(x[keep]), np.log(y[keep]), 1)[0])
+             if keep.sum() >= 3 and np.ptp(x[keep]) > 0 else None)
+    order = np.argsort(x)
+    print(f"# K4 density on the {what} path: {len(curve)} windows, obs/camera "
+          f"{x.min():.1f}-{x.max():.1f}, worst field rel err {y.max():.3e}; log-log slope "
+          f"{slope}; (obs/camera, err) sorted: "
+          + " ".join(f"({x[i]:.1f},{y[i]:.2e})" for i in order), flush=True)
+    return dict(windows=len(curve), obs_per_cam_min=float(x.min()), obs_per_cam_max=float(x.max()),
+                worst_err=float(y.max()), loglog_slope=slope,
+                curve=[[float(a), float(b)] for a, b in curve])
+
+
+def grow_config():
+    """bench.py's widths (640x480, 1000 x 8) from the smallest tiers the
+    BA-window constants and LOCAL_POINTS_CAP allow (16 keyframes, 8192
+    points), growth on with caps 64 and 32768, loop closing on."""
+    return dataclasses.replace(bench_config(), grow_capacity=True, max_keyframes=16,
+                               max_points=8192, max_keyframes_cap=64, max_points_cap=32768)
+
+
+def render_grow_orbit():
+    """The orbit of tests/test_capacity.py:218-254: make_scene(1400, seed
+    0), 60 frames at step 0.1, in sensor dtypes."""
+    from orb_slam2_comment_tpu_torch.utils import synthetic as syn
+
+    scene = syn.make_scene(n_points=1400, seed=0)
+    frames = []
+    for f in syn.render_sequence(scene, syn.make_trajectory("orbit", n_frames=60, step=0.1),
+                                 K=syn.DEFAULT_K, depth=True):
+        f["image"] = np.clip(f["image"], 0, 255).astype(np.uint8)
+        f["depth"] = np.clip(f["depth"] * 1000.0, 0, 65535).astype(np.uint16)
+        frames.append(f)
+    return frames
+
+
+def run_grow(cfg, frames, dev, calls=None):
+    """System.track_rgbd over the orbit. Returns (system, per-frame Tcw or
+    None, per-frame seconds, growth events: frame, tiers, n_kfs and the
+    launch counts at that moment). With `calls`, the last frame's
+    pose_optimize calls are kept there."""
+    from orb_slam2_comment_tpu_torch.ops import optim
+
+    system = make_system(cfg, dev)
+    poses, secs, events = [], [], []
+    system.tracker.grow_callbacks.append(lambda c: events.append(dict(
+        frame=len(poses), max_keyframes=c.max_keyframes, max_points=c.max_points,
+        n_kfs=system.tracker.n_kfs, counts=read_counts())))
+    po = optim.pose_optimize
+
+    def recording(*a, **k):
+        calls.append((a, k))
+        return po(*a, **k)
+
+    for i, f in enumerate(frames):
+        if calls is not None and i == len(frames) - 1:
+            optim.pose_optimize = recording
+        try:
+            t0 = time.perf_counter()
+            out = system.track_rgbd(f["image"], f["depth"], f["timestamp"])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        finally:
+            optim.pose_optimize = po
+        poses.append(None if out.Tcw is None else np.asarray(out.Tcw, np.float64))
+    system.shutdown()
+    return system, poses, secs, events
+
+
+def grow_path(cfg, frames, dev, windows, calls):
+    """The orbit from the smallest tiers: growth fires; the System, the
+    tracker, the loop closer, the map, the database, the keyframe
+    timestamps and the mapper machine all agree on the new tier; the
+    keyframes created before it survive; K1-K4 launch after it; the last
+    frame is tracked, ATE < 10 cm (PERF.md §2's orbit bound) and a rerun
+    is bit-identical. Local-BA windows go to `windows`, the last frame's
+    pose_optimize calls to `calls`."""
+    from orb_slam2_comment_tpu_torch.ops import lba_cuda
+    from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
+
+    prep = lba_cuda.prep_problem
+
+    def keep(*a, **k):
+        windows.append(prep(*a, **k))
+        return windows[-1]
+
+    lba_cuda.prep_problem = keep
+    try:
+        system, poses, secs, events = run_grow(cfg, frames, dev, calls)
+    finally:
+        lba_cuda.prep_problem = prep
+    end = read_counts()
+    if not events or system.cfg.max_keyframes <= 16:
+        raise AssertionError(f"growth never reached the keyframe tier: {events}")
+    t, k, p = system.tracker, system.cfg.max_keyframes, system.cfg.max_points
+    lc = system.loop_closer
+    tiers = dict(keyframes=[k, t.cfg.max_keyframes, lc.cfg.max_keyframes, t.map.kf_obs.shape[0],
+                            system.db.valid.shape[0], len(t.kf_ts_host)],
+                 points=[p, t.cfg.max_points, lc.cfg.max_points, t.map.pt_pos.shape[0]])
+    if any(len(set(v)) != 1 for v in tiers.values()):
+        raise AssertionError("tiers disagree after growth (System, tracker, loop closer, map, "
+                             f"database, keyframe timestamps): {tiers}")
+    mp = t.ds.mp
+    if mp.ba_cam_ids.shape[0] != min(cfg.ba_free_kfs, k) + min(cfg.ba_fixed_kfs, k):
+        raise AssertionError("the mapper machine was not rebuilt at the new tier")
+    kf_growth = next(e for e in events if e["max_keyframes"] > 16)
+    n_before = kf_growth["n_kfs"]
+    valid_before = int(t.map.kf_valid[:n_before].sum())
+    if not (n_before >= 13 and valid_before >= 10):
+        raise AssertionError(f"keyframes before growth: {n_before} slots, {valid_before} valid")
+    after = {kk: end[kk] - kf_growth["counts"][kk] for kk in K1_K4}
+    if min(after.values()) <= 0:
+        raise AssertionError(f"kernels not launched after growth: {after}")
+    if poses[-1] is None:
+        raise AssertionError("the last orbit frame is not tracked")
+    tracked = [i for i, T in enumerate(poses) if T is not None]
+    ate = ate_rmse([poses[i] for i in tracked], [frames[i]["Tcw_gt"] for i in tracked])
+    if not ate < 0.10:
+        raise AssertionError(f"grow orbit ATE {ate} m")
+    _, poses2, _, events2 = run_grow(cfg, frames, dev)
+    if [e["frame"] for e in events2] != [e["frame"] for e in events]:
+        raise AssertionError("the rerun grew at other frames")
+    for i, (a, b) in enumerate(zip(poses, poses2)):
+        if (a is None) != (b is None) or (a is not None and not np.array_equal(a, b)):
+            raise AssertionError(f"grow rerun differs at frame {i}")
+    g = kf_growth["frame"]
+    return dict(frames=len(frames), frames_run=2 * len(frames),
+                growth=[{kk: e[kk] for kk in ("frame", "max_keyframes", "max_points", "n_kfs")}
+                        for e in events],
+                growth_frame_ms=secs[g] * 1e3,
+                neighbour_frames_p50_ms=float(np.median(secs[max(g - 5, 0):g] + secs[g + 1:g + 6])
+                                              * 1e3),
+                frame_p50_ms=float(np.median(secs) * 1e3), tiers=[k, p],
+                kfs_before_growth=n_before, valid_of_those=valid_before,
+                launches_after_growth=after, n_kfs=t.n_kfs, valid_kfs=int(t.map.kf_valid.sum()),
+                tracked=len(tracked), n_loops=system.n_loops, ate_m=ate,
+                ba_windows=len(windows), rerun_identical_frames=len(frames))
+
+
+DESK_FRAMES = 90
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def render_desk(out):
+    """The head of the desk sequence: the scene, trajectory and writers of
+    tools/make_datasets.py:43-51 (tests/test_accuracy_smoke.py:46-57),
+    through the port's renderer, into `out`."""
+    from orb_slam2_comment_tpu_torch.utils import render as rr
+
+    K_TUM, HW_TUM = (520.0, 520.0, 320.0, 240.0), (480, 640)
+    scene = rr.make_room(seed=13, size=(7.0, 3.0, 7.0), n_boxes=6)
+    poses = rr.desk_trajectory(400, seed=3)[:DESK_FRAMES]
+    rr.write_tum_rgbd(out, scene, poses, K_TUM, HW_TUM, fps=30.0)
+    rr.write_settings_yaml(os.path.join(out, "settings.yaml"), K_TUM, HW_TUM, fps=30.0, bf=40.0,
+                           depth_factor=rr.DEPTH_FACTOR_TUM, n_features=1000)
+
+
+def start_desk_render():
+    """Render the desk head into data/ in a new interpreter, whose worker
+    processes fork from a process that never touched CUDA. Returns (the
+    sequence folder, the process)."""
+    out = os.path.join(ROOT, "data", "port_desk_head")
+    shutil.rmtree(out, ignore_errors=True)
+    proc = subprocess.Popen([sys.executable, "-c",
+                             f"import chip_smoke; chip_smoke.render_desk({out!r})"], cwd=ROOT)
+    return out, proc
+
+
+def desk_path(seq, dev, smi):
+    """The port's run_dataset driver on the rendered desk head, as the
+    reference's rgbd_tum runs it, from its settings.yaml (the default
+    SlamConfig: growth and loop closing on), frames prestaged on the card,
+    2 runs: every frame in the TUM file, ATE < 15 mm (ATE_LIMIT_M of
+    tests/test_accuracy_smoke.py; the JAX package measured 5.7-6.8 mm),
+    and the warm run's latency."""
+    from orb_slam2_comment_tpu_torch.examples import run_dataset
+    from orb_slam2_comment_tpu_torch.utils.trajectory import umeyama_align
+
+    times = []
+    system = run_dataset.run("rgbd", "tum_rgbd", seq, settings=os.path.join(seq, "settings.yaml"),
+                             associations=os.path.join(seq, "associations.txt"),
+                             out_prefix=os.path.join(seq, "port"), runs=2, prestage=True,
+                             device=dev, timings=times)
+    cfg = system.cfg
+    if not (cfg.grow_capacity and system.loop_closer is not None and cfg.n_features == 1000
+            and cfg.n_levels == 8 and system.tracker.map.kf_pose.device.type == dev.type):
+        raise AssertionError(f"the desk driver did not build the default System on {dev}: "
+                             f"{cfg}")
+    est = np.loadtxt(os.path.join(seq, "port_tum.txt"), ndmin=2)
+    gt = np.loadtxt(os.path.join(seq, "groundtruth.txt"), ndmin=2)
+    ia = [i for i, t_ in enumerate(est[:, 0]) if np.abs(gt[:, 0] - t_).min() <= 0.02]
+    ib = [int(np.argmin(np.abs(gt[:, 0] - est[i, 0]))) for i in ia]
+    if len(ia) < DESK_FRAMES - 2:
+        raise AssertionError(f"desk coverage {len(ia)}/{DESK_FRAMES}")
+    aligned, _ = umeyama_align(est[ia, 1:4], gt[ib, 1:4], False)
+    ate = float(np.sqrt(np.mean(np.sum((aligned - gt[ib, 1:4]) ** 2, axis=1))))
+    if not ate < 0.015:
+        raise AssertionError(f"desk head ATE {ate * 1e3:.2f} mm")
+    return dict(frames=DESK_FRAMES, frames_run=2 * DESK_FRAMES, ate_m=ate, coverage=len(ia),
+                n_kfs=system.tracker.n_kfs, n_loops=system.n_loops,
+                tiers=(cfg.max_keyframes, cfg.max_points), card=smi,
+                warm=latency(times, 5), reference_cpu=dict(ate_m_range=[0.0057, 0.0068]))
 
 
 def drive(name, fn, path_kernels, per_path):
@@ -1388,7 +1636,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     # the port first: without the repository around it, fail before printing
-    from orb_slam2_comment_tpu_torch import _build
+    from orb_slam2_comment_tpu_torch import _build  # noqa: F401
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1398,7 +1646,20 @@ def main():
     print(f"# device {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
+    desk_seq, desk_proc = (None, None) if args.kernels_only else start_desk_render()
+    try:
+        return run_all(args, dev, kind, smi, desk_seq, desk_proc)
+    finally:
+        if desk_proc is not None and desk_proc.poll() is None:
+            desk_proc.kill()
+            desk_proc.wait()
+
+
+def run_all(args, dev, kind, smi, desk_seq, desk_proc):
+    """Build, check and time the kernels, then drive the paths."""
     import prev_kernels
+    from orb_slam2_comment_tpu_torch import _build
+    from orb_slam2_comment_tpu_torch.ops import orb
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:   # both builds at once, one nvcc per source
@@ -1414,13 +1675,14 @@ def main():
             if [int(t) for t in line.split() if t.isdigit()] != [0, 0, 0]:
                 raise AssertionError(f"ptxas: a stack frame or spills: {line.strip()}")
 
-    cfg, scfg, mcfg = bench_config(), stereo_config(), mono_config()
+    cfg, scfg, mcfg, gcfg = bench_config(), stereo_config(), mono_config(), grow_config()
     t0 = time.perf_counter()
     frames = render_frames(max(args.frames, 100))
     sframes = render_stereo()
-    orbit, mframes = ([], []) if args.kernels_only else (render_orbit(), render_mono())
+    orbit, mframes, gframes = ([], [], []) if args.kernels_only else (
+        render_orbit(), render_mono(), render_grow_orbit())
     print(f"# rendered {len(frames)} + {len(sframes)} stereo + {len(orbit)} + {len(mframes)} "
-          f"frames in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"+ {len(gframes)} frames in {time.perf_counter() - t0:.1f} s", flush=True)
 
     checks = list(check_k1_k2(cfg, frames[0], dev))
     checks += [check_k3(cfg, dev), check_k4(dev), check_k3_batched(cfg, dev)]
@@ -1453,10 +1715,30 @@ def main():
     vo_problem = []
     run("facade", lambda: facade_path(cfg, frames, orbit, results["loop"], dev, vo_problem,
                                       per_path), K1_K4)
+    gwindows, gcalls = [], []
+    run("grow", lambda: grow_path(gcfg, gframes, dev, gwindows, gcalls), K1_K4)
+    # K1-K4 after growth: K1 and K2 on the last orbit frame, K3 on its last
+    # pose_optimize call, K4 on every local-BA window of the run
+    _, gstack, _, _, glyx = k2_inputs(gcfg, gframes[-1]["image"], dev, "K1 after growth")
+    if not torch.equal(orb.gather_patches(gstack, glyx), orb.gather_patches_plain(gstack, glyx)):
+        raise AssertionError("K2 after growth differs from its plain version")
+    _, dT, dmask = k3_agrees(gcalls[-1], "K3 after growth")
+    density = {"stereo": k4_density(windows, scfg.K, scfg.bf, "stereo"),
+               "grow": k4_density(gwindows, gcfg.K, gcfg.bf, "grow")}
+    print(f"# after growth: K1 and K2 bit-exact on the last orbit frame, K3 |dT|={dT:.2e} with "
+          f"{dmask} inlier flags differing, K4 within 1e-3 on all {len(gwindows)} windows",
+          flush=True)
+    t0 = time.perf_counter()
+    if desk_proc.wait() != 0:
+        raise AssertionError(f"rendering the desk head failed ({desk_proc.returncode})")
+    print(f"# desk head rendered (waited {time.perf_counter() - t0:.1f} s more)", flush=True)
+    run("desk", lambda: desk_path(desk_seq, dev, smi), K1_K4)
     frames_run["vo"] = 10
     for path, k, per in (("main", "fast_nms", 1), ("stereo", "fast_nms", 2),
                          ("stereo", "gather_patches", 2), ("mono", "fast_nms", 1),
-                         ("facade", "fast_nms", 1), ("facade", "gather_patches", 1)):
+                         ("facade", "fast_nms", 1), ("facade", "gather_patches", 1),
+                         ("grow", "fast_nms", 1), ("grow", "gather_patches", 1),
+                         ("desk", "fast_nms", 1), ("desk", "gather_patches", 1)):
         if per_path[path][k] != per * frames_run[path]:
             raise AssertionError(f"{k} launched {per_path[path][k]} times over "
                                  f"{frames_run[path]} {path} frames, not {per} per frame")
@@ -1476,6 +1758,9 @@ def main():
                          launches_per_frame={p: per_path[p][kern] / frames_run[p]
                                              for p in paths if frames_run[p]},
                          **res))
+        if name in ("lba_build", "lba_build@stereo"):
+            d = density["grow" if name == "lba_build" else "stereo"]
+            rows[-1]["density"] = {k: v for k, v in d.items() if k != "curve"}
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -86,6 +86,19 @@ class KeyFrameDatabase:
         self.valid[kf_id] = True
         return vec
 
+    def grow(self, new_max_kfs: int):
+        """Widen to a larger keyframe tier (see map_state.grow_map), the new
+        rows filled as the constructor fills them; the inverted file is
+        rebuilt on its next query."""
+        dk = new_max_kfs - self.valid.shape[0]
+        if dk <= 0:
+            return
+        tail = KeyFrameDatabase(self.voc, dk, self.groups.shape[1], self.device)
+        for f in _FIELDS:
+            if getattr(self, f) is not None:
+                setattr(self, f, torch.cat([getattr(self, f), getattr(tail, f)]))
+        self._postings = None
+
     def postings(self):
         """Lazy inverted file, rebuilt after database edits."""
         if self._postings is None:

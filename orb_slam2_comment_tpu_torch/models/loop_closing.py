@@ -657,9 +657,21 @@ class LoopCloser:
         cfg = self.cfg
         res = optim.gba_result(prob, inv_s2, cfg.K, cfg.bf, carry)
         m = trk.map
+        # the map may have grown to a larger tier while the chunks ran:
+        # growth keeps every id, so the snapshot-shaped result is padded
+        # (new slots are not in the snapshot and get the catch-up)
+        cam_T, pts = res.cam_T, res.pts
+        dk, dp = m.kf_pose.shape[0] - cam_T.shape[0], m.pt_pos.shape[0] - pts.shape[0]
+        if dk > 0:
+            cam_T = torch.cat([cam_T, torch.eye(4, dtype=cam_T.dtype,
+                                                device=cam_T.device).repeat(dk, 1, 1)])
+            snap_kf = torch.cat([snap_kf, snap_kf.new_zeros(dk)])
+        if dp > 0:
+            pts = torch.cat([pts, pts.new_zeros((dp, 3))])
+            snap_pt = torch.cat([snap_pt, snap_pt.new_zeros(dp)])
         ref = trk.ref_kf if trk.ref_kf >= 0 else 0
         T_ref_old = m.kf_pose[ref].cpu().numpy()
-        m = _apply_gba(m, res.cam_T, res.pts, snap_kf, snap_pt)
+        m = _apply_gba(m, cam_T, pts, snap_kf, snap_pt)
         trk.map = m
         self.n_gba_applied += 1
         # keep the tracker's pose relative to its reference KF

@@ -129,6 +129,22 @@ def _clip(ids: torch.Tensor, n: int) -> torch.Tensor:
     return torch.clamp(ids, 0, n - 1).long()
 
 
+def grow_map(m: MapState, new_kmax: int, new_pmax: int) -> MapState:
+    """Pad a MapState to a larger capacity tier (the reference's
+    `grow_map`): keyframe rows to new_kmax, point rows to new_pmax, ids
+    unchanged, the new rows filled as empty_map fills them. Raises
+    ValueError on a shrink; returns `m` itself when the sizes do not
+    change."""
+    (kmax, n_feat), pmax = m.kf_obs.shape, m.pt_pos.shape[0]
+    if new_kmax < kmax or new_pmax < pmax:
+        raise ValueError("capacity tiers only grow")
+    if new_kmax == kmax and new_pmax == pmax:
+        return m
+    tail = empty_map(new_kmax - kmax, new_pmax - pmax, n_feat, m.kf_obs.device)
+    return MapState(**{f: torch.cat([getattr(m, f), getattr(tail, f)])
+                       for f in MapState.field_names()})
+
+
 def compact_points(m: MapState):
     """Stream-compact live points to the low slots. Returns
     (m', n_live, remap) with remap[old id] = new id or -1."""

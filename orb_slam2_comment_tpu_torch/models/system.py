@@ -15,9 +15,11 @@ KITTI trajectory savers, and map save/load in the reference's npz format
 packaged asset unless one is given (a `.txt` path is read as ORBvoc.txt);
 without the asset one is trained from the first keyframe's descriptors.
 
+With `cfg.grow_capacity` (the default) the map, the database and every
+component move to the next capacity tier when the map is ~85% full.
+
 The device is CUDA unless `device=` says otherwise; without a CUDA device
-`System(cfg)` raises rather than falling back to the CPU. Capacity growth
-raises NotImplementedError.
+`System(cfg)` raises rather than falling back to the CPU.
 """
 
 from __future__ import annotations
@@ -110,6 +112,7 @@ class System:
         # compaction renumbers point ids; the background GBA snapshot holds
         # old ones (mbStopGBA on map interference, src/LoopClosing.cc:410-423)
         self.tracker.compact_callbacks.append(self._on_compact)
+        self.tracker.grow_callbacks.append(self._on_grow)
 
     def _init_db(self):
         """Database, relocalization hook, loop closer and node gate for
@@ -140,6 +143,17 @@ class System:
     def _on_compact(self):
         if self.loop_closer is not None:
             self.loop_closer.abort_background()
+
+    def _on_grow(self, new_cfg: SlamConfig):
+        """A capacity tier reached (Tracker._maybe_grow): the new cfg to
+        every component, and the database widened. A background GBA in
+        flight carries on: growth keeps every id, and its result is padded
+        to the grown map when applied."""
+        self.cfg = new_cfg
+        if self.loop_closer is not None:
+            self.loop_closer.cfg = new_cfg
+        if self.db is not None:
+            self.db.grow(new_cfg.max_keyframes)
 
     def _on_new_kf(self, kf_id: int):
         if self.db is None or self.loop_closer is None:
@@ -354,6 +368,11 @@ class System:
         z = np.load(path)
         self._rebuild()
         t = self.tracker
+        # a map saved at a larger tier: this System grows to it first, as
+        # capacity growth would have (the reference keeps its smaller cfg)
+        kmax, pmax = z["kf_pose"].shape[0], z["pt_pos"].shape[0]
+        if kmax > self.cfg.max_keyframes or pmax > self.cfg.max_points:
+            t._grow_to(max(kmax, self.cfg.max_keyframes), max(pmax, self.cfg.max_points))
         empty = ms.empty_map(self.cfg.max_keyframes, self.cfg.max_points, t._n_slots(),
                              self.device)
         t.map = ms.MapState(**{

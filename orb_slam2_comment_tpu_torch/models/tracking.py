@@ -28,6 +28,10 @@ fallback against the previous host-path frame (`_track_vo_frame`), the host
 keyframe policy; then the device state is rebuilt from the host
 (`_sync_ds_from_host`) and a new keyframe's mapper pass is drained at
 once.
+
+Before each frame, with `cfg.grow_capacity`, `_maybe_grow` moves the map
+to the next capacity tier when it is ~85% full (the reference's
+`Tracker._maybe_grow`).
 """
 
 from __future__ import annotations
@@ -75,9 +79,6 @@ def check_slice(cfg: SlamConfig):
     """Raise for configurations outside what the port runs."""
     if cfg.sensor not in (RGBD, STEREO, MONOCULAR):
         raise NotImplementedError(f"sensor {cfg.sensor!r}")
-    if cfg.grow_capacity:
-        raise NotImplementedError("grow_capacity=True: capacity tiers are not ported; "
-                                  "set grow_capacity=False")
     if not cfg.chunked_mapper or not cfg.fused_tracking:
         raise NotImplementedError("the monolithic mapper and the staged tracking ladder "
                                   "are not ported (chunked_mapper and fused_tracking "
@@ -640,6 +641,9 @@ class Tracker:
         self.n_last_inliers = 0
         self.new_kf_callbacks = []
         self.compact_callbacks = []   # point-arena compaction hook
+        self.grow_callbacks = []      # capacity-tier hook (set by System)
+        self._next_compact_kfs = 0    # top-tier compaction rate limit
+        self._top_tier_warned = False
         self.reloc_fn = None          # relocalization hook (set by System)
         self.compaction_epoch = 0     # bumps on every point-arena compaction
         self.velocity: Optional[torch.Tensor] = None   # host-path motion model
@@ -691,6 +695,7 @@ class Tracker:
         return self.state == OK and self.ds is not None and not self.cfg.localization_only
 
     def track_rgbd_arrays(self, frame_id: int, ts: float, image, depth_map) -> TrackOutput:
+        self._maybe_grow()
         if self._on_device():
             return self._device_step(_frame_step_rgbd, frame_id, ts,
                                      image_to_tensor(image, self.device),
@@ -699,6 +704,7 @@ class Tracker:
                                            self.device))
 
     def track_stereo_arrays(self, frame_id: int, ts: float, image_l, image_r) -> TrackOutput:
+        self._maybe_grow()
         if self._on_device():
             return self._device_step(_frame_step_stereo, frame_id, ts,
                                      image_to_tensor(image_l, self.device),
@@ -707,6 +713,7 @@ class Tracker:
                                              self.device))
 
     def track_mono_arrays(self, frame_id: int, ts: float, image) -> TrackOutput:
+        self._maybe_grow()
         if self._on_device():
             return self._device_step(_frame_step_mono, frame_id, ts,
                                      image_to_tensor(image, self.device))
@@ -995,6 +1002,93 @@ class Tracker:
         self.map = m
         self.ds = self.ds.replace(n_pts=n_pts, obs_counts=oc, mp=mp)
         self.n_pts_host = int(n_pts)
+
+    # -- capacity tiers ------------------------------------------------------
+    def _maybe_grow(self):
+        """Grow the map to the next capacity tier when ~85% full: the
+        keyframe cursor at 85% of max_keyframes, or the point cursor at 85%
+        of max_points, each up to its `_cap`. Growth drains the mapper, pads
+        every map array (ms.grow_map), swaps cfg (capacities ride in it)
+        and rebuilds the tier-shaped device state; System passes the new cfg
+        on through grow_callbacks. At the top tier a full point cursor
+        compacts the arena instead, with hysteresis.
+
+        The reference also compacts on the host when only the cursor filled
+        and the mapper does not compact on the device; the port's mapper
+        always does (chunked and fused, `_frame_step_core`), so that branch
+        cannot be reached here and is left out."""
+        cfg = self.cfg
+        if not cfg.grow_capacity:
+            return
+        kmax, pmax = cfg.max_keyframes, cfg.max_points
+        need_k = self.n_kfs >= int(kmax * 0.85) and kmax < cfg.max_keyframes_cap
+        cursor_full = self.n_pts_host >= int(pmax * 0.85)
+        if not (need_k or cursor_full):
+            return
+        need_p = cursor_full and pmax < cfg.max_points_cap
+        if not (need_k or need_p):
+            # the point cursor is full at the top tier. Compaction helps
+            # only with dead slots to reclaim, and each attempt drains the
+            # mapper: >= 15% reclaimable, >= 4 keyframes since the last try
+            if self.n_kfs < self._next_compact_kfs:
+                return
+            self._next_compact_kfs = self.n_kfs + 4
+            self._drain_mapper()
+            n_live = int(torch.sum(self.map.pt_valid))
+            if n_live >= int(pmax * 0.85):
+                if not self._top_tier_warned:
+                    print(f"[tracker] WARNING: point arena at top tier with {n_live}/{pmax} "
+                          f"live; point creation degrades until culling frees slots")
+                    self._top_tier_warned = True
+                return
+            print(f"[tracker] point arena at top tier (cursor {self.n_pts_host}/{pmax}); "
+                  f"compacting")
+            self._compact_points()
+            return
+        self._grow_to(min(kmax * 4, cfg.max_keyframes_cap) if need_k else kmax,
+                      min(pmax * 4, cfg.max_points_cap) if need_p else pmax)
+
+    def _grow_to(self, new_k: int, new_p: int):
+        """Move the map and cfg to the tier (new_k keyframes, new_p points)
+        and tell the grow_callbacks."""
+        # the port resolves every frame before returning, so the mapper is
+        # all there is to drain
+        self._drain_mapper()
+        self.map = ms.grow_map(self.map, new_k, new_p)
+        self.kf_ts_host = np.concatenate([self.kf_ts_host,
+                                          np.zeros(new_k - len(self.kf_ts_host), np.float64)])
+        self.cfg = dataclasses.replace(self.cfg, max_keyframes=new_k, max_points=new_p)
+        if self.ds is not None:
+            # the machine is idle; its window capacities follow the tier
+            self.ds = self.ds.replace(
+                obs_counts=ms.point_observation_counts(self.map),
+                mp=lm.empty_machine(self.cfg, self._n_slots(), self.device))
+        for cb in self.grow_callbacks:
+            cb(self.cfg)
+
+    def _compact_points(self):
+        """Compact the point arena (ms.compact_points) and remap every
+        point id held outside the map. Call only with the mapper drained."""
+        for cb in self.compact_callbacks:
+            cb()   # e.g. abort a background GBA whose snapshot holds old ids
+        m2, n_live, remap = ms.compact_points(self.map)
+        self.map = m2
+        self.compaction_epoch += 1
+        n_live = int(n_live)
+        print(f"[tracker] compacted point arena: cursor {self.n_pts_host} -> {n_live} "
+              f"live slots")
+        self.n_pts_host = n_live
+        pmax = self.map.pt_pos.shape[0]
+        if self.ds is not None:
+            la = self.ds.last_assoc
+            self.ds = self.ds.replace(
+                last_assoc=torch.where(la >= 0, remap[_clip(la, pmax)], -1).to(torch.int32),
+                n_pts=torch.tensor(n_live, dtype=torch.int32, device=self.device),
+                obs_counts=ms.point_observation_counts(self.map))
+        lf = self.last_frame
+        if lf is not None and lf.assoc is not None:
+            lf.assoc = torch.where(lf.assoc >= 0, remap[_clip(lf.assoc, pmax)],
+                                   -1).to(torch.int32)
 
     def _stereo_initialization(self, frame: Frame) -> bool:
         """Tracking::StereoInitialization: >= 500 features; identity pose;

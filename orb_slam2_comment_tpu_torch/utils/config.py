@@ -2,7 +2,9 @@
 
 Field for field the same as the JAX package's `utils/config.SlamConfig` and
 `ops/orb.ORBConfig` (same names, defaults and derived properties). They are
-kept here because the JAX ones cannot be imported without jax.
+kept here because the JAX ones cannot be imported without jax. The settings
+readers `load_yaml_settings` and `load_rectification` are copies of the
+JAX package's, held equal by tests/test_torch_drivers.py.
 """
 
 from __future__ import annotations
@@ -147,3 +149,95 @@ class SlamConfig:
     @property
     def has_distortion(self):
         return any(abs(v) > 1e-12 for v in (self.k1, self.k2, self.p1, self.p2, self.k3))
+
+
+def load_yaml_settings(path: str, sensor: str) -> SlamConfig:
+    """Parse an ORB-SLAM2-style YAML settings file (same keys as the
+    reference's cv::FileStorage usage, e.g. Examples/RGB-D/TUM1.yaml).
+
+    Supports the OpenCV '%YAML:1.0' header and flat 'Key.sub: value' lines
+    without requiring a yaml library.
+    """
+    vals = {}
+    with open(path) as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if not line or line.startswith("%") or ":" not in line:
+                continue
+            key, _, val = line.partition(":")
+            key, val = key.strip(), val.strip()
+            if not val:
+                continue
+            try:
+                vals[key] = float(val)
+            except ValueError:
+                vals[key] = val
+
+    def g(key, default):
+        return vals.get(key, default)
+
+    return SlamConfig(
+        sensor=sensor,
+        fx=g("Camera.fx", 520.0),
+        fy=g("Camera.fy", 520.0),
+        cx=g("Camera.cx", 320.0),
+        cy=g("Camera.cy", 240.0),
+        k1=g("Camera.k1", 0.0),
+        k2=g("Camera.k2", 0.0),
+        p1=g("Camera.p1", 0.0),
+        p2=g("Camera.p2", 0.0),
+        k3=g("Camera.k3", 0.0),
+        bf=g("Camera.bf", 0.0),
+        fps=g("Camera.fps", 30.0),
+        rgb=bool(int(g("Camera.RGB", 1))),
+        width=int(g("Camera.width", 640)),
+        height=int(g("Camera.height", 480)),
+        th_depth=g("ThDepth", 35.0),
+        depth_map_factor=g("DepthMapFactor", 1.0),
+        n_features=int(g("ORBextractor.nFeatures", 1000)),
+        scale_factor=g("ORBextractor.scaleFactor", 1.2),
+        n_levels=int(g("ORBextractor.nLevels", 8)),
+        ini_th_fast=g("ORBextractor.iniThFAST", 20.0),
+        min_th_fast=g("ORBextractor.minThFAST", 7.0),
+        # extension key (not in the reference): Hamming acceptance scaling
+        # for low-texture/synthetic footage, cf. SlamConfig.match_th_scale
+        match_th_scale=g("Matcher.thScale", 1.0),
+    )
+
+
+def load_rectification(path: str):
+    """Parse the LEFT./RIGHT. {K,D,R,P,height,width} stereo-rectification
+    blocks from an EuRoC-style settings YAML (Examples/Stereo/EuRoC.yaml:
+    34-76, consumed by stereo_euroc.cc:63-98 and ros_stereo.cc:71-108).
+
+    Returns (K1, D1, R1, P1, K2, D2, R2, P2, (h, w)) as numpy arrays, or
+    None when the file carries no rectification blocks. Handles the
+    OpenCV '!!opencv-matrix' node format without a yaml library.
+    """
+    import re
+
+    import numpy as np
+
+    text = open(path).read()
+    mats = {}
+    for m in re.finditer(
+        r"(LEFT|RIGHT)\.(K|D|R|P)\s*:\s*!!opencv-matrix"
+        r".*?data\s*:\s*\[(.*?)\]",
+        text,
+        re.DOTALL,
+    ):
+        side, name, data = m.group(1), m.group(2), m.group(3)
+        vals = [float(v) for v in re.split(r"[,\s]+", data.strip()) if v]
+        mats[f"{side}.{name}"] = np.asarray(vals, np.float64)
+    needed = [f"{s}.{n}" for s in ("LEFT", "RIGHT") for n in "KDRP"]
+    if not all(k in mats for k in needed):
+        return None
+    hm = re.search(r"LEFT\.height\s*:\s*(\d+)", text)
+    wm = re.search(r"LEFT\.width\s*:\s*(\d+)", text)
+    h = int(hm.group(1)) if hm else 480
+    w = int(wm.group(1)) if wm else 752
+    return (
+        mats["LEFT.K"], mats["LEFT.D"], mats["LEFT.R"], mats["LEFT.P"],
+        mats["RIGHT.K"], mats["RIGHT.D"], mats["RIGHT.R"], mats["RIGHT.P"],
+        (h, w),
+    )

@@ -151,18 +151,18 @@ def test_orbit_closes_the_same_loop_as_jax():
 
 
 def test_slice_refuses_what_it_does_not_port():
-    """Capacity growth, the monolithic mapper and the staged ladder raise;
-    localization-only mode is admitted."""
+    """The monolithic mapper and the staged ladder raise; capacity growth
+    and localization-only mode are admitted."""
     from orb_slam2_comment_tpu_torch.models.system import System
     from orb_slam2_comment_tpu_torch.utils.config import SlamConfig
 
     base = dict(_cfg_kw(), max_keyframes=8, max_points=1024)
-    for kw in (dict(grow_capacity=True), dict(chunked_mapper=False),
-               dict(fused_tracking=False)):
+    for kw in (dict(chunked_mapper=False), dict(fused_tracking=False)):
         with pytest.raises(NotImplementedError):
             System(SlamConfig(**dict(base, **kw)), device="cpu")
     assert System(SlamConfig(**dict(base, localization_only=True)),
                   device="cpu").cfg.localization_only
+    assert System(SlamConfig(**dict(base, grow_capacity=True)), device="cpu").cfg.grow_capacity
 
 
 def test_system_needs_cuda_unless_told_cpu():
@@ -356,8 +356,50 @@ def _same_vocab_text():
                 T._parse_orb_vocab(p)
 
 
+def _same_source(jmod, tmod, names):
+    import inspect
+
+    for name in names:
+        assert inspect.getsource(getattr(tmod, name)) == inspect.getsource(
+            getattr(jmod, name)), name
+
+
+def _same_settings_readers():
+    from orb_slam2_comment_tpu.utils import config as J
+    from orb_slam2_comment_tpu_torch.utils import config as T
+
+    _same_source(J, T, ("load_yaml_settings", "load_rectification"))
+
+
+def _same_dataset_readers():
+    from orb_slam2_comment_tpu.utils import datasets as J
+    from orb_slam2_comment_tpu_torch.utils import datasets as T
+
+    _same_source(J, T, ("SequenceItem", "load_tum_mono", "load_tum_rgbd", "load_kitti",
+                        "load_euroc", "stereo_rectify_maps", "remap"))
+
+
+def _same_renderer():
+    """Every function, class and constant of the renderer but its two PNG
+    writers, which go through the port's codec."""
+    import inspect
+
+    from orb_slam2_comment_tpu.utils import render as J
+    from orb_slam2_comment_tpu_torch.utils import render as T
+
+    names = [k for k, v in vars(J).items() if not k.startswith("__")
+             and getattr(v, "__module__", None) == J.__name__]
+    assert len(names) > 15 and {"_write_png_gray8", "_write_png_gray16"} <= set(names)
+    _same_source(J, T, [k for k in names if not k.startswith("_write_png")])
+    assert [k for k, v in vars(T).items() if inspect.isfunction(v) or inspect.isclass(v)
+            if v.__module__ == T.__name__] == names
+    assert T.DEPTH_FACTOR_TUM == J.DEPTH_FACTOR_TUM
+
+
 @pytest.mark.parametrize("check", [_same_constants, _same_frames, _same_trajectory_eval,
-                                   _same_vocabulary, _same_vocab_training, _same_vocab_text],
+                                   _same_vocabulary, _same_vocab_training, _same_vocab_text,
+                                   _same_settings_readers, _same_dataset_readers,
+                                   _same_renderer],
                          ids=lambda f: f.__name__[6:])
 def test_port_copies_equal_jax(check):
     """The port's own copies of the JAX package's numpy-only modules and of
