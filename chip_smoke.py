@@ -15,8 +15,8 @@ timed three ways: the span of one call (`ms`), 100 calls back to back
 host dispatch), beside its plain version, its bound and, for K2, the one
 PyTorch call that computes the same function. Then it drives eight paths
 of the default `System(cfg, device="cuda")` (loop closing on, as bench.py
-builds it), each with the launch counts set to 0 just before it and read
-just after:
+builds it) and the distributed BA on their maps, each with the launch
+counts set to 0 just before it and read just after:
 
   main   bench.py's config, scene and forward trajectory: every frame
          tracks, keyframes, local BA and loop detection happen, the
@@ -54,6 +54,16 @@ just after:
          the kernels build), run through the port's run_dataset driver on
          its settings.yaml (the default SlamConfig: growth and loop closing
          on) with prestaged frames and 2 runs: ATE < 15 mm.
+  dist   parallel/dist_ba.py on the maps of the main and loop paths: NCCL at
+         world size 1 (distributed_global_ba on the loop map's full GBA
+         problem, distributed_local_ba on the main path's last keyframe
+         window, both distributed pose graphs on the loop's essential graph:
+         each bit-identical to its single-process solve), two gloo ranks
+         sharing the card (poses within 1e-3 of one process), and
+         local_bundle_adjustment on that window in both layouts (K4 launched
+         for cam_major=True, poses within 1e-3 of the ragged build); one GBA
+         iteration timed at world sizes 1 and 2 and on the synthetic problem
+         at the default tier's size, with its all-reduce calls and bytes.
 
 K4 is also held to its plain version on every local-BA window of the
 stereo and grow paths, and its worst field error is printed against the
@@ -104,6 +114,9 @@ KERNEL_ROWS = [
     # K3 on the first visual-odometry frame's problem; counts the facade
     # path's VO frames (a subset of the pose_lm row's launches)
     ("pose_lm@vo", _K3, "pose_lm", ("vo",)),
+    # K4 on the main path's last local-BA window; counts the dist path's
+    # local_bundle_adjustment(cam_major=True)
+    ("lba_build@lba", _K4, "lba_build", ("dist",)),
 ]
 K1_K4 = ("fast_nms", "gather_patches", "pose_lm", "lba_build")
 
@@ -820,11 +833,14 @@ def check_database(system):
     return int(live.sum()), system.loop_closer.n_detections
 
 
-def main_path(cfg, frames, dev, profile):
+def main_path(cfg, frames, dev, profile, keep=None):
+    """`keep`, when a dict, receives the first run's final map."""
     from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
 
     system, recs, secs, ran, _ = run_sequence(cfg, frames, dev, profile=profile)
     torch.cuda.synchronize()
+    if keep is not None:
+        keep["map"] = system.tracker.map
     n_kfs = system.tracker.n_kfs
     if n_kfs < 3:
         raise AssertionError(f"only {n_kfs} keyframes")
@@ -943,16 +959,19 @@ def run_orbit(cfg, frames, dev, chunk_events=None):
     return system, poses, secs, loops, in_flight
 
 
-def loop_path(cfg, frames, dev):
+def loop_path(cfg, frames, dev, keep=None):
     """The orbit at the bench config: every frame tracked, >= 1 loop, the
     background GBA in flight and applied by shutdown(), ATE < 0.10 m
-    (tests/test_loop_closing.py:50), and a bit-identical rerun."""
+    (tests/test_loop_closing.py:50), and a bit-identical rerun. `keep`,
+    when a dict, receives the first run's final map and the arguments of
+    its last essential-graph solve (the loop's; System's warm-up solves a
+    two-keyframe graph first)."""
     from orb_slam2_comment_tpu_torch.ops import optim
     from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
 
     # time each GBA chunk with CUDA events (no host sync added)
     events = []
-    chunk = optim.gba_chunk
+    chunk, graph = optim.gba_chunk, optim.essential_graph_optimize
 
     def timed_chunk(*a, **k):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -962,12 +981,19 @@ def loop_path(cfg, frames, dev):
         events.append((s, e))
         return out
 
-    optim.gba_chunk = timed_chunk
+    def kept_graph(*a, **k):
+        if keep is not None:
+            keep["graph"] = (tuple(x.clone() for x in a), dict(k))
+        return graph(*a, **k)
+
+    optim.gba_chunk, optim.essential_graph_optimize = timed_chunk, kept_graph
     try:
         system, poses, secs, loops, in_flight = run_orbit(cfg, frames, dev)
     finally:
-        optim.gba_chunk = chunk
+        optim.gba_chunk, optim.essential_graph_optimize = chunk, graph
     torch.cuda.synchronize()
+    if keep is not None:
+        keep["map"] = system.tracker.map
     lc = system.loop_closer
     if system.n_loops < 1:
         raise AssertionError("the orbit closed no loop")
@@ -1608,6 +1634,252 @@ def desk_path(seq, dev, smi):
                 warm=latency(times, 5), reference_cpu=dict(ate_m_range=[0.0057, 0.0068]))
 
 
+# ---------------------------------------------------------------------------
+# the dist path: distributed BA (parallel/dist_ba.py) and the dense-Schur
+# local BA on the maps of the main and loop paths
+# ---------------------------------------------------------------------------
+
+DIST_DIR = os.path.join(ROOT, "build", "dist")
+# the single-process and distributed GBA, and the two pose-error bounds
+DIST_GBA_ITERS, DIST_RANK_TOL, LBA_LAYOUT_TOL = 10, 1e-3, 1e-3
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _pose_err(Ta, Tb):
+    """Largest |se3_log(Ta Tb^-1)| over the cameras, in float64."""
+    from orb_slam2_comment_tpu_torch.ops import geometry as geo
+
+    return float(geo.se3_log(Ta.double() @ geo.inv_T(Tb.double())).norm(dim=-1).max())
+
+
+def _same(a, b, what):
+    for f in a._fields:
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{what}: {f} differs from the single-process solve")
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _iteration_ms(run, dev):
+    """(ms of one LM iteration, all-reduce calls and bytes per iteration):
+    run(1) and run(2) after a warm call, the difference of their spans."""
+    from orb_slam2_comment_tpu_torch.parallel import dist_ba
+
+    run(1)
+    spans, counts = [], []
+    for n in (1, 2):
+        dist_ba.stats.update(calls=0, bytes=0)
+        _sync(dev)
+        t0 = time.perf_counter()
+        run(n)
+        _sync(dev)
+        spans.append((time.perf_counter() - t0) * 1e3)
+        counts.append(dict(dist_ba.stats))
+    return dict(one_iteration_ms=spans[1] - spans[0], iters1_ms=spans[0], iters2_ms=spans[1],
+                all_reduce_calls_per_iteration=counts[1]["calls"] - counts[0]["calls"],
+                all_reduce_bytes_per_iteration=counts[1]["bytes"] - counts[0]["bytes"])
+
+
+def dist_rank(rank, world, port, problem, out):
+    """One gloo rank on the saved problem's device (cuda:0 for dist_path;
+    run in its own process): the distributed GBA of the problem, then one
+    iteration timed. Rank 0 saves the result and prints the timings as
+    `DIST_RANK <json>`."""
+    import torch.distributed as dist
+
+    from orb_slam2_comment_tpu_torch.ops import optim
+    from orb_slam2_comment_tpu_torch.parallel import dist_ba
+
+    z = torch.load(problem)
+    dev = torch.device(z["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        prob = optim.BAProblem(**{k: v.to(dev) for k, v in z["prob"].items()})
+        inv, K, bf = z["inv"].to(dev), z["K"], z["bf"]
+        res = dist_ba.distributed_global_ba(prob, inv, K, bf, iters=DIST_GBA_ITERS)
+        timing = _iteration_ms(lambda n: dist_ba.distributed_global_ba(prob, inv, K, bf,
+                                                                       iters=n), dev)
+        if rank == 0:
+            torch.save({f: getattr(res, f).cpu() for f in res._fields}, out)
+            print("DIST_RANK " + json.dumps(timing), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_ranks(prob, inv, K, bf, world=2):
+    """The GBA problem solved by `world` gloo ranks sharing its device
+    (cuda:0), each in its own process. Returns (result tensors, rank 0's
+    timings), or raises with the ranks' output."""
+    os.makedirs(DIST_DIR, exist_ok=True)
+    problem, out = os.path.join(DIST_DIR, "gba_problem.pt"), os.path.join(DIST_DIR, "rank0.pt")
+    torch.save(dict(prob={f: getattr(prob, f).cpu() for f in prob._fields}, inv=inv.cpu(),
+                    K=tuple(K), bf=float(bf), device=str(prob.cam_T.device)), problem)
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke.dist_rank("
+                               f"{r}, {world}, {port}, {problem!r}, {out!r})"], cwd=ROOT,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"{world} gloo ranks on cuda:0 failed:\n"
+                             + "\n".join(log[-3000:] for log in logs))
+    line = [x for x in logs[0].splitlines() if x.startswith("DIST_RANK ")][-1]
+    return torch.load(out), json.loads(line[len("DIST_RANK "):])
+
+
+def check_k4_lba(prob, inv, F, K, BF):
+    """K4 against its plain version on the main path's last local-BA
+    window at the window's start (lba_init, robust): each field within
+    1e-3 relative; timed as the other K4 rows."""
+    from orb_slam2_comment_tpu_torch.ops import lba_cuda, optim
+
+    prep = lba_cuda.prep_problem(prob, inv, F)
+    cam_T, pts, *_, obs_ok = optim.lba_init(prob, inv, K, BF)
+    sk = lba_cuda.build_system(prep, cam_T, pts, obs_ok, True, K, BF)
+    sp = optim.build_system_plain(prob, inv, F, cam_T, pts, obs_ok, True, K, BF)
+    worst = k4_field_err(sp, sk, "K4 on the main path's last window")
+    NC, NP, O = prob.cam_T.shape[0], prob.pts.shape[0], prob.obs_cam.shape[0]
+    n_obs = int(obs_ok.sum())
+    return dict(max_abs_err=worst, library_ms=None,
+                **timed(lambda: lba_cuda.build_system(prep, cam_T, pts, obs_ok, True, K, BF),
+                        lambda: optim.build_system_plain(prob, inv, F, cam_T, pts, obs_ok, True,
+                                                         K, BF)),
+                **bound(k4_bytes(NC, NP, O, n_obs, F), K4_OPS_PER_OBS * n_obs))
+
+
+def dist_path(cfg, main_keep, loop_keep, dev, k4_window):
+    """parallel/dist_ba.py on the card, on the maps of the main and loop
+    paths:
+      - NCCL at world size 1: distributed_global_ba on the loop path's
+        full-map GBA problem (every keyframe slot x every feature slot,
+        every point), distributed_local_ba on the main path's last
+        keyframe window and both distributed pose graphs on the loop path's
+        essential graph, each bit-identical to its single-process solve;
+        one LM iteration timed, and its all-reduce calls and bytes counted;
+      - two gloo ranks sharing cuda:0 (spawned) on the same GBA problem:
+        poses within 1e-3 of the single process (an all-reduce adds the
+        partial sums in its own order), one iteration timed;
+      - local_bundle_adjustment on the main path's last window in both
+        layouts: cam_major=True launches K4, the ragged layout builds in
+        plain PyTorch, poses within 1e-3; K4 held to its plain version on
+        that window;
+      - one GBA iteration timed at world size 1 on the synthetic problem at
+        the default tier's size (256 cameras, 32768 points, 1000
+        observations per camera).
+    `k4_window` receives (window, inverse sigma2, free cameras) of the
+    local-BA window for K4's check after the path."""
+    import torch.distributed as dist
+
+    from orb_slam2_comment_tpu_torch.models import local_mapping as lm
+    from orb_slam2_comment_tpu_torch.models.loop_closing import _build_gba_problem
+    from orb_slam2_comment_tpu_torch.ops import lba_cuda, optim
+    from orb_slam2_comment_tpu_torch.parallel import dist_ba
+
+    K, bf = cfg.K, cfg.bf
+    out = {}
+    gprob, ginv = _build_gba_problem(loop_keep["map"], cfg)
+    m = main_keep["map"]
+    kf = int(torch.nonzero(m.kf_valid).max())
+    wprob, cam_ids, pt_ids = lm.build_ba_window(m, kf, cfg)
+    winv = lm._inv_sigma2(cfg, dev)
+    g_args, g_kw = loop_keep["graph"]
+    if g_args[0].shape[0] != cfg.max_keyframes:
+        raise AssertionError("the loop path kept no essential graph of its map")
+    single = optim.global_bundle_adjustment(gprob, ginv, K, bf, iters=DIST_GBA_ITERS)
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        t0 = time.perf_counter()
+        res = dist_ba.distributed_global_ba(gprob, ginv, K, bf, iters=DIST_GBA_ITERS)
+        _sync(dev)
+        out["gba_world1_s"] = time.perf_counter() - t0
+        _same(res, single, "distributed_global_ba (NCCL, world 1)")
+        out["gba_world1"] = _iteration_ms(
+            lambda n: dist_ba.distributed_global_ba(gprob, ginv, K, bf, iters=n), dev)
+        out["gba_single"] = _iteration_ms(
+            lambda n: optim.global_bundle_adjustment(gprob, ginv, K, bf, iters=n), dev)
+        lres, _, cam2, pt2 = dist_ba.distributed_local_ba(m, kf, cfg)
+        if not (torch.equal(cam2, cam_ids) and torch.equal(pt2, pt_ids)):
+            raise AssertionError("distributed_local_ba built another window")
+        _same(lres, optim.global_bundle_adjustment(wprob, winv, K, bf, iters=15, cg_iters=20),
+              "distributed_local_ba (NCCL, world 1)")
+        _same(dist_ba.distributed_essential_graph(*g_args, **g_kw),
+              optim.essential_graph_optimize(*g_args, **g_kw),
+              "distributed_essential_graph (NCCL, world 1)")
+        _same(dist_ba.distributed_essential_graph_sparse(*g_args, **g_kw),
+              optim.essential_graph_optimize_sparse(*g_args, **g_kw, cg_iters=300),
+              "distributed_essential_graph_sparse (NCCL, world 1)")
+        syn, _, _ = dist_ba.make_synthetic_ba_problem(n_cams=256, n_pts=32768, obs_per_cam=1000,
+                                                      device=dev)
+        sinv = torch.tensor([1.0 / 1.2 ** (2 * l) for l in range(8)], device=dev)
+        out["synthetic_256x32768x1000_world1"] = _iteration_ms(
+            lambda n: dist_ba.distributed_global_ba(syn, sinv, (500.0, 500.0, 320.0, 240.0),
+                                                    100.0, iters=n), dev)
+    finally:
+        dist.destroy_process_group()
+    print("# dist: NCCL world 1 bit-identical to one process on the GBA problem "
+          f"({gprob.cam_T.shape[0]} keyframes x {gprob.obs_cam.shape[0] // gprob.cam_T.shape[0]}"
+          f" slots, {gprob.pts.shape[0]} points, {int(gprob.obs_valid.sum())} valid "
+          f"observations), the local-BA window of keyframe {kf} and both pose graphs "
+          f"({int(g_args[6].sum())} valid edges of {g_args[3].shape[0]}); one GBA iteration "
+          f"{out['gba_world1']}", flush=True)
+
+    two, timing = gloo_ranks(gprob, ginv, K, bf)
+    err2 = _pose_err(two["cam_T"].to(dev), single.cam_T)
+    if not err2 < DIST_RANK_TOL:
+        raise AssertionError(f"2 gloo ranks: pose error {err2} against one process")
+    out["gba_gloo_world2"] = dict(timing, pose_err=err2,
+                                  pts_max_abs_diff=float((two["pts"].to(dev)
+                                                          - single.pts).abs().max()),
+                                  inlier_flags_differing=int((two["obs_inlier"].to(dev)
+                                                              != single.obs_inlier).sum()))
+    print(f"# dist: 2 gloo ranks on cuda:0 within {err2:.3e} of one process; "
+          f"{out['gba_gloo_world2']}", flush=True)
+
+    F = min(cfg.ba_free_kfs, cfg.max_keyframes)
+    k0 = lba_cuda.build_system.launches
+    a = optim.local_bundle_adjustment(wprob, winv, K, bf, cam_major=True, n_free=F)
+    k4_launches = lba_cuda.build_system.launches - k0
+    b = optim.local_bundle_adjustment(wprob, winv, K, bf, cam_major=False, n_free=F)
+    if lba_cuda.build_system.launches - k0 != k4_launches or k4_launches < 2:
+        raise AssertionError(f"K4 launches: {k4_launches} for cam_major=True, "
+                             f"{lba_cuda.build_system.launches - k0 - k4_launches} ragged")
+    lerr = _pose_err(a.cam_T, b.cam_T)
+    if not lerr < LBA_LAYOUT_TOL:
+        raise AssertionError(f"local_bundle_adjustment layouts differ by {lerr}")
+    out["local_ba_layouts"] = dict(
+        window=[wprob.cam_T.shape[0], wprob.pts.shape[0], int(wprob.obs_valid.sum())],
+        k4_launches=k4_launches, pose_err=lerr,
+        pts_max_abs_diff=float((a.pts - b.pts).abs().max()),
+        inlier_flags_differing=int((a.obs_inlier != b.obs_inlier).sum()))
+    k4_window.append((wprob, winv, F))
+    print(f"# dist: local_bundle_adjustment on the main path's last window, K4 "
+          f"({k4_launches} launches) vs the ragged build: {out['local_ba_layouts']}", flush=True)
+    return out
+
+
 def drive(name, fn, path_kernels, per_path):
     """Run one path with the launch counts set to 0 just before it and read
     just after; every kernel the path runs must have launched."""
@@ -1706,9 +1978,11 @@ def run_all(args, dev, kind, smi, desk_seq, desk_proc):
         results[name] = drive(name, fn, kernels, per_path)
         frames_run[name] = results[name].get("frames_run")
 
-    run("main", lambda: main_path(cfg, frames[:args.frames], dev, args.profile), K1_K4)
+    main_keep, loop_keep = {}, {}
+    run("main", lambda: main_path(cfg, frames[:args.frames], dev, args.profile, main_keep),
+        K1_K4)
     run("reloc", lambda: reloc_path(cfg, frames, dev), K1_K4 + ("pose_lm_batched",))
-    run("loop", lambda: loop_path(cfg, orbit, dev), K1_K4)
+    run("loop", lambda: loop_path(cfg, orbit, dev, loop_keep), K1_K4)
     windows = []
     run("stereo", lambda: stereo_path(scfg, sframes, dev, windows), K1_K4)
     run("mono", lambda: mono_path(mcfg, mframes, dev), K1_K4)
@@ -1733,6 +2007,8 @@ def run_all(args, dev, kind, smi, desk_seq, desk_proc):
         raise AssertionError(f"rendering the desk head failed ({desk_proc.returncode})")
     print(f"# desk head rendered (waited {time.perf_counter() - t0:.1f} s more)", flush=True)
     run("desk", lambda: desk_path(desk_seq, dev, smi), K1_K4)
+    k4_window = []
+    run("dist", lambda: dist_path(cfg, main_keep, loop_keep, dev, k4_window), ("lba_build",))
     frames_run["vo"] = 10
     for path, k, per in (("main", "fast_nms", 1), ("stereo", "fast_nms", 2),
                          ("stereo", "gather_patches", 2), ("mono", "fast_nms", 1),
@@ -1748,6 +2024,9 @@ def run_all(args, dev, kind, smi, desk_seq, desk_proc):
                                   scfg.K, scfg.bf))
     # K3 on the first visual-odometry frame's problem
     checks.append(check_k3_vo(cfg, vo_problem[0]))
+    # K4 on the main path's last local-BA window, which the dist path's
+    # local_bundle_adjustment solved
+    checks.append(check_k4_lba(*k4_window[0], cfg.K, cfg.bf))
 
     rows = []
     for (name, (src, rep), kern, paths), res in zip(KERNEL_ROWS, checks, strict=True):

@@ -113,6 +113,7 @@ def run(sensor, dataset, seq_dir, settings=None, vocabulary=None,
             print(f"--- run {run_idx + 1}/{runs} "
                   f"{'(timed)' if run_idx == runs - 1 else '(warm-up)'} ---")
         t_run0 = time.perf_counter()
+        n_ok = 0
         for i, f in enumerate(loader):
             t0 = time.perf_counter()
             if sensor == "rgbd":
@@ -125,6 +126,7 @@ def run(sensor, dataset, seq_dir, settings=None, vocabulary=None,
                 out = system.track_monocular(f["image"], f["timestamp"])
             dt = time.perf_counter() - t0
             times.append(dt)
+            n_ok += out.state == 1
             if i % 20 == 0:
                 print(f"frame {i}/{len(items)} state={out.state} "
                       f"inl={out.n_inliers} {dt*1e3:.1f}ms")
@@ -135,12 +137,14 @@ def run(sensor, dataset, seq_dir, settings=None, vocabulary=None,
     run_wall = time.perf_counter() - t_run0
     print(f"run wall incl. drain: {run_wall:.2f} s "
           f"({len(times)/max(run_wall, 1e-9):.1f} fps)")
+    print(f"tracked frames: {n_ok}/{len(times)}")
     system.save_trajectory_tum(f"{out_prefix}_tum.txt")
     system.save_trajectory_kitti(f"{out_prefix}_kitti.txt")
     system.save_keyframe_trajectory_tum(f"{out_prefix}_kf_tum.txt")
     t = np.asarray(times[5:]) if len(times) > 10 else np.asarray(times)
     print(f"median tracking time: {np.median(t)*1e3:.1f} ms")
     print(f"mean tracking time:   {np.mean(t)*1e3:.1f} ms")
+    print(f"p99 tracking time:    {np.percentile(t, 99)*1e3:.1f} ms")
     if os.environ.get("RUN_DUMP"):
         worst = np.argsort(t)[-12:][::-1]
         for i in worst:

@@ -5,10 +5,15 @@ essential graph and chunked global BA.
 - `pose_optimize`: motion-only BA (Optimizer::PoseOptimization). The plain
   version `pose_optimize_plain` is the reference's XLA branch; CUDA
   tensors go to kernel K3 (`ops/lm_cuda.py`).
-- Local BA (`lba_init`, `lba_iterate`, `lba_prune`, `lba_finalize`) over a
-  camera-major `BAProblem`, with a Schur complement on the points. One
-  linearization is `build_system_plain` (the reference's cam-major
-  build_system_xla) or, for CUDA tensors, kernel K4 (`ops/lba_cuda.py`).
+- Local BA (`lba_init`, `lba_iterate`, `lba_prune`, `lba_finalize`, and
+  `local_bundle_adjustment` over all four) with a Schur complement on the
+  points. On a camera-major window (`cam_major=True`) one linearization is
+  `build_system_plain` (the reference's cam-major build_system_xla) or, for
+  CUDA tensors, kernel K4 (`ops/lba_cuda.py`); on any other layout it is
+  `build_system_ragged`, plain PyTorch on either device.
+- `reduce`: the global BA and both pose-graph solvers take a hook applied
+  to every sum over the observation or edge axis (`parallel/dist_ba.py`
+  passes an all-reduce; None is the identity).
 
 `lax.fori_loop` / `while_loop` / `cond` become Python loops and `if`s; the
 local-BA loop reads one or two scalars per iteration on the host.
@@ -93,6 +98,11 @@ def _chi2_th(is_stereo):
 
 def _huber_delta(is_stereo):
     return torch.where(is_stereo, C.HUBER_STEREO, C.HUBER_MONO).to(torch.float32)
+
+
+def _identity(t):
+    """The `reduce` hook of a single process."""
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -248,6 +258,23 @@ def lba_cost(prob: BAProblem, inv_sigma2_levels, K, bf, cam_T, pts, obs_ok, robu
     return _cost_from_chi2(prob, _edge_chi2(r, inv_s2, comp), obs_ok, robust)
 
 
+def _weighted_rows(prob: BAProblem, cam_T, pts, obs_ok, inv_sigma2_levels, K, bf,
+                   robust: bool):
+    """Per observation: residual r, Jacobians Jc (zero for fixed or invalid
+    cameras) and Jp, their weighted rows JcW and JpW, chi2, and the
+    free-camera mask."""
+    cam = prob.obs_cam.long()
+    r, Jc, Jp, _ = _edge_jacobians(cam_T[cam], pts[prob.obs_pt.long()], prob.obs_uvr, K, bf)
+    inv_s2, comp = _edge_weights(prob.obs_oct, prob.obs_stereo, obs_ok, inv_sigma2_levels)
+    chi2 = _edge_chi2(r, inv_s2, comp)
+    hw = geo.huber_weight(chi2, _huber_delta(prob.obs_stereo)) if robust \
+        else torch.ones_like(chi2)
+    cam_free = (~prob.cam_fixed) & prob.cam_valid
+    Jc = Jc * cam_free[cam].to(Jc.dtype)[:, None, None]
+    w = (inv_s2 * hw)[:, None] * comp
+    return r, Jc, Jp, Jc * w[:, :, None], Jp * w[:, :, None], chi2, cam_free
+
+
 def build_system_plain(prob: BAProblem, inv_sigma2_levels, F: int, cam_T, pts, obs_ok,
                        robust: bool, K, bf) -> LBASystem:
     """Plain version of K4: the reference's cam-major build_system_xla.
@@ -259,17 +286,9 @@ def build_system_plain(prob: BAProblem, inv_sigma2_levels, F: int, cam_T, pts, o
     N_per = O // Nc
     cam = prob.obs_cam.long()
     ptl = prob.obs_pt.long()
-    r, Jc, Jp, _ = _edge_jacobians(cam_T[cam], pts[ptl], prob.obs_uvr, K, bf)
-    inv_s2, comp = _edge_weights(prob.obs_oct, prob.obs_stereo, obs_ok, inv_sigma2_levels)
-    chi2 = _edge_chi2(r, inv_s2, comp)
+    r, Jc, Jp, JcW, JpW, chi2, _ = _weighted_rows(prob, cam_T, pts, obs_ok, inv_sigma2_levels,
+                                                  K, bf, robust)
     cost, n_in = _cost_from_chi2(prob, chi2, obs_ok, robust)
-    hw = geo.huber_weight(chi2, _huber_delta(prob.obs_stereo)) if robust \
-        else torch.ones_like(chi2)
-    cam_free = (~prob.cam_fixed) & prob.cam_valid
-    Jc = Jc * cam_free[cam].to(Jc.dtype)[:, None, None]
-    w = (inv_s2 * hw)[:, None] * comp
-    JcW = Jc * w[:, :, None]
-    JpW = Jp * w[:, :, None]
     Hcc = torch.einsum("oki,okj->oij", JcW, Jc).reshape(Nc, N_per, 6, 6).sum(1)[:F]
     bc = -torch.einsum("oki,ok->oi", JcW, r).reshape(Nc, N_per, 6).sum(1)[:F]
     hpp_o = torch.einsum("oki,okj->oij", JpW, Jp).reshape(O, 9)
@@ -285,24 +304,66 @@ def build_system_plain(prob: BAProblem, inv_sigma2_levels, F: int, cam_T, pts, o
                      cost=cost, n_in=n_in)
 
 
+class RaggedPlans(NamedTuple):
+    """The segment sums of the general-layout build, sorted once per window."""
+
+    cam: SegmentPlan    # observation -> camera
+    pt: SegmentPlan     # observation -> point
+    pair: SegmentPlan   # observation -> (camera < F, point)
+
+
+def ragged_plans(prob: BAProblem, F: int) -> RaggedPlans:
+    Nc, Np = prob.cam_T.shape[0], prob.pts.shape[0]
+    cam, ptl = prob.obs_cam.long(), prob.obs_pt.long()
+    return RaggedPlans(SegmentPlan(cam, Nc), SegmentPlan(ptl, Np),
+                       SegmentPlan(torch.where(cam < F, cam * Np + ptl, -1), F * Np))
+
+
+def build_system_ragged(prob: BAProblem, plans: RaggedPlans, inv_sigma2_levels, F: int, cam_T,
+                        pts, obs_ok, robust: bool, K, bf) -> LBASystem:
+    """One linearization over any observation layout: the reference's
+    general branch of build_system_xla, whose `.at[].add` scatters become
+    segment sums (Hcc and bc over the camera, Hpp and bp over the point, E
+    over the (camera, point) pair, repeated pairs adding up)."""
+    Np = prob.pts.shape[0]
+    r, Jc, Jp, JcW, JpW, chi2, _ = _weighted_rows(prob, cam_T, pts, obs_ok, inv_sigma2_levels,
+                                                  K, bf, robust)
+    cost, n_in = _cost_from_chi2(prob, chi2, obs_ok, robust)
+    Hcc = plans.cam.sum(torch.einsum("oki,okj->oij", JcW, Jc))[:F]
+    bc = plans.cam.sum(-torch.einsum("oki,ok->oi", JcW, r))[:F]
+    Hpp = plans.pt.sum(torch.einsum("oki,okj->oij", JpW, Jp))
+    bp = plans.pt.sum(-torch.einsum("oki,ok->oi", JpW, r))
+    E = plans.pair.sum(torch.einsum("oki,okj->oij", JcW, Jp))     # [F * Np, 6, 3]
+    return LBASystem(Hcc=Hcc, bc=bc, Hpp9=Hpp.reshape(Np, 9).T.contiguous(),
+                     bp3=bp.T.contiguous(),
+                     E=E.reshape(F, Np, 6, 3).permute(0, 2, 3, 1).contiguous(),
+                     cost=cost, n_in=n_in)
+
+
 def _lba_core(prob: BAProblem, inv_sigma2_levels, K, bf, cam_major: bool = True,
               n_free=None):
     """Local-BA LM machinery over one window: returns
     (build_system, cost_of, iterate_da). n_free: count of leading camera
-    slots that may be free; the reduced camera system spans only them."""
-    if not cam_major:
-        raise NotImplementedError(
-            "the port's local BA supports the camera-major window layout only")
+    slots that may be free; the reduced camera system spans only them.
+    cam_major: the window is camera-major (O = Nc * N_per), so one
+    linearization is K4; otherwise `build_system_ragged`."""
     from orb_slam2_comment_tpu_torch.ops import lba_cuda
 
     Nc, Np = prob.cam_T.shape[0], prob.pts.shape[0]
     F = Nc if n_free is None else max(1, min(n_free, Nc))
     cam_free_mask = (~prob.cam_fixed) & prob.cam_valid
-    prepped = lba_cuda.prep_problem(prob, inv_sigma2_levels, F)
     dev = prob.cam_T.device
+    if cam_major:
+        prepped = lba_cuda.prep_problem(prob, inv_sigma2_levels, F)
 
-    def build_system(cam_T, pts, obs_ok, robust) -> LBASystem:
-        return lba_cuda.build_system(prepped, cam_T, pts, obs_ok, robust, K, bf)
+        def build_system(cam_T, pts, obs_ok, robust) -> LBASystem:
+            return lba_cuda.build_system(prepped, cam_T, pts, obs_ok, robust, K, bf)
+    else:
+        plans = ragged_plans(prob, F)
+
+        def build_system(cam_T, pts, obs_ok, robust) -> LBASystem:
+            return build_system_ragged(prob, plans, inv_sigma2_levels, F, cam_T, pts, obs_ok,
+                                       robust, K, bf)
 
     def cost_of(cam_T, pts, obs_ok, robust):
         return lba_cost(prob, inv_sigma2_levels, K, bf, cam_T, pts, obs_ok, robust)
@@ -399,8 +460,10 @@ def _lba_core(prob: BAProblem, inv_sigma2_levels, K, bf, cam_major: bool = True,
 
 # local-BA LM carry: (cam_T, pts, lam, cost, n_in, obs_ok)
 
-def lba_init(prob: BAProblem, inv_sigma2_levels, K, bf):
-    """Initial LM carry: SO(3)-projected poses, robust cost and inliers."""
+def lba_init(prob: BAProblem, inv_sigma2_levels, K, bf, cam_major=True):
+    """Initial LM carry: SO(3)-projected poses, robust cost and inliers.
+    The cost is the same for either layout; cam_major is the reference's
+    signature."""
     cam_T = geo.orthonormalize_T(prob.cam_T)
     cost0, n_in0 = lba_cost(prob, inv_sigma2_levels, K, bf, cam_T, prob.pts,
                             prob.obs_valid, True)
@@ -409,14 +472,15 @@ def lba_init(prob: BAProblem, inv_sigma2_levels, K, bf):
 
 
 def lba_iterate(prob: BAProblem, inv_sigma2_levels, carry, K, bf, n_iters: int,
-                robust: bool, tol: float = 1e-3, n_free=None):
+                robust: bool, cam_major=True, tol: float = 1e-3, n_free=None):
     """Advance the LM carry by up to n_iters steps (early stop on stall)."""
-    _, _, iterate_da = _lba_core(prob, inv_sigma2_levels, K, bf, True, n_free)
+    _, _, iterate_da = _lba_core(prob, inv_sigma2_levels, K, bf, cam_major, n_free)
     return iterate_da(carry, n_iters, robust, tol)
 
 
-def lba_prune(prob: BAProblem, inv_sigma2_levels, carry, K, bf):
-    """Mid-schedule prune: drop chi2/depth outliers, reset the damping."""
+def lba_prune(prob: BAProblem, inv_sigma2_levels, carry, K, bf, cam_major=True):
+    """Mid-schedule prune: drop chi2/depth outliers, reset the damping
+    (either layout)."""
     cam_T, pts = carry[0], carry[1]
     r, depth = _residual_unified(cam_T[prob.obs_cam.long()], pts[prob.obs_pt.long()],
                                  prob.obs_uvr, K, bf)
@@ -439,6 +503,24 @@ def lba_finalize(prob: BAProblem, inv_sigma2_levels, carry, K, bf) -> BAResult:
     chi2 = _edge_chi2(r, inv_s2, comp)
     inlier = prob.obs_valid & (chi2 <= _chi2_th(prob.obs_stereo)) & (depth > 0)
     return BAResult(cam_T=geo.orthonormalize_T(cam_T), pts=pts, obs_inlier=inlier, cost=cost)
+
+
+def local_bundle_adjustment(prob: BAProblem, inv_sigma2_levels, K, bf,
+                            iters1: int = C.LOCAL_BA_ITS_PHASE1,
+                            iters2: int = C.LOCAL_BA_ITS_PHASE2,
+                            cam_major: bool = False, n_free=None) -> BAResult:
+    """Two-phase local BA (src/Optimizer.cc:453-778): iters1 robust LM
+    steps, the chi2 prune, iters2 plain steps, the final classification.
+    The reduced camera system is dense: S = Hcc - E Hpp^-1 E^T as one
+    [6F, 3Np] @ [3Np, 6F] product. cam_major=True needs a camera-major
+    window and reaches K4 on the card; the default takes any layout."""
+    carry = lba_init(prob, inv_sigma2_levels, K, bf, cam_major)
+    carry = lba_iterate(prob, inv_sigma2_levels, carry, K, bf, iters1, robust=True,
+                        cam_major=cam_major, n_free=n_free)
+    carry = lba_prune(prob, inv_sigma2_levels, carry, K, bf, cam_major)
+    carry = lba_iterate(prob, inv_sigma2_levels, carry, K, bf, iters2, robust=False,
+                        cam_major=cam_major, n_free=n_free)
+    return lba_finalize(prob, inv_sigma2_levels, carry, K, bf)
 
 
 # ---------------------------------------------------------------------------
@@ -556,15 +638,16 @@ def _graph_edges(S, edge_i, edge_j, edge_Sji, edge_valid, free, scale_mask):
     return r, r * ew[:, None], Ji, Jj
 
 
-def _graph_cost(S, edge_i, edge_j, edge_Sji, edge_valid):
+def _graph_cost(S, edge_i, edge_j, edge_Sji, edge_valid, reduce=None):
     r = geo.sim3_log(edge_Sji @ S[edge_i.long()] @ geo.inv_T(S[edge_j.long()]))
-    return torch.sum(torch.where(edge_valid[:, None], r * r, torch.zeros_like(r)))
+    return (reduce or _identity)(
+        torch.sum(torch.where(edge_valid[:, None], r * r, torch.zeros_like(r))))
 
 
-def _graph_update(S, dx, free, cost, lam, edges):
+def _graph_update(S, dx, free, cost, lam, edges, reduce=None):
     S_new = geo.sim3_exp(dx) @ S
     S_new = torch.where(free[:, None, None], S_new, S)
-    new_cost = _graph_cost(S_new, *edges)
+    new_cost = _graph_cost(S_new, *edges, reduce=reduce)
     accept = new_cost < cost
     return (torch.where(accept, S_new, S), torch.where(accept, lam * 0.5, lam * 4.0),
             torch.where(accept, new_cost, cost))
@@ -572,9 +655,12 @@ def _graph_update(S, dx, free, cost, lam, edges):
 
 def essential_graph_optimize(S0, kf_valid, kf_fixed, edge_i, edge_j, edge_Sji, edge_valid,
                              fix_scale: bool = False,
-                             iters: int = C.ESSENTIAL_GRAPH_ITERS) -> PoseGraphResult:
+                             iters: int = C.ESSENTIAL_GRAPH_ITERS,
+                             reduce=None) -> PoseGraphResult:
     """7-DoF pose graph (Optimizer::OptimizeEssentialGraph) with identity
-    information, damped Gauss-Newton on the dense [7K, 7K] normal matrix."""
+    information, damped Gauss-Newton on the dense [7K, 7K] normal matrix.
+    `reduce` follows every sum over the edges (H, b and the cost)."""
+    red = reduce or _identity
     Kn = S0.shape[0]
     dev, dt = S0.device, S0.dtype
     scale_mask = _scale_mask(fix_scale, S0)
@@ -588,31 +674,35 @@ def essential_graph_optimize(S0, kf_valid, kf_fixed, edge_i, edge_j, edge_Sji, e
     anchor = (~free).repeat_interleave(7)
     anchor2 = anchor[:, None] | anchor[None, :]
     eye = torch.eye(Kn * 7, dtype=dt, device=dev)
-    S, lam, cost = S0, torch.full((), 1e-4, dtype=dt, device=dev), _graph_cost(S0, *edges)
+    S, lam = S0, torch.full((), 1e-4, dtype=dt, device=dev)
+    cost = _graph_cost(S0, *edges, reduce=reduce)
     for _ in range(iters):
         _, rw, Ji, Jj = _graph_edges(S, *edges, free, scale_mask)
         blocks = torch.cat([torch.einsum("eki,ekj->eij", Ji, Ji),
                             torch.einsum("eki,ekj->eij", Jj, Jj),
                             torch.einsum("eki,ekj->eij", Ji, Jj),
                             torch.einsum("eki,ekj->eij", Jj, Ji)])
-        H = plan_H.sum(blocks).reshape(Kn, Kn, 7, 7)
-        b = plan_b.sum(torch.cat([-torch.einsum("eki,ek->ei", Ji, rw),
-                                  -torch.einsum("eki,ek->ei", Jj, rw)]))
+        H = red(plan_H.sum(blocks)).reshape(Kn, Kn, 7, 7)
+        b = red(plan_b.sum(torch.cat([-torch.einsum("eki,ek->ei", Ji, rw),
+                                      -torch.einsum("eki,ek->ei", Jj, rw)])))
         Hf = H.permute(0, 2, 1, 3).reshape(Kn * 7, Kn * 7)
         Hf = Hf + torch.diag(lam * torch.clamp(torch.diagonal(Hf), min=1e-6) + 1e-8)
         Hf = torch.where(anchor2, eye, Hf)
         bf_ = torch.where(anchor, torch.zeros_like(b.reshape(-1)), b.reshape(-1))
         dx = torch.linalg.solve_ex(Hf, bf_)[0].reshape(Kn, 7) * scale_mask
-        S, lam, cost = _graph_update(S, dx, free, cost, lam, edges)
+        S, lam, cost = _graph_update(S, dx, free, cost, lam, edges, reduce)
     return PoseGraphResult(S=S, cost=cost)
 
 
 def essential_graph_optimize_sparse(S0, kf_valid, kf_fixed, edge_i, edge_j, edge_Sji,
                                     edge_valid, fix_scale: bool = False,
                                     iters: int = C.ESSENTIAL_GRAPH_ITERS,
-                                    cg_iters: int = 100) -> PoseGraphResult:
+                                    cg_iters: int = 100, reduce=None) -> PoseGraphResult:
     """The same graph solved matrix-free: per-edge [7,7] blocks, H v by
-    segment sums, block-Jacobi preconditioned CG (large maps)."""
+    segment sums, block-Jacobi preconditioned CG (large maps). `reduce`
+    follows every sum over the edges (b, the block diagonal, each matvec's
+    partial and the cost)."""
+    red = reduce or _identity
     Kn = S0.shape[0]
     dev, dt = S0.device, S0.dtype
     scale_mask = _scale_mask(fix_scale, S0)
@@ -621,15 +711,16 @@ def essential_graph_optimize_sparse(S0, kf_valid, kf_fixed, edge_i, edge_j, edge
     ei, ej = edge_i.long(), edge_j.long()
     plan = SegmentPlan(torch.cat([ei, ej]), Kn)
     eye7 = torch.eye(7, dtype=dt, device=dev)
-    S, lam, cost = S0, torch.full((), 1e-4, dtype=dt, device=dev), _graph_cost(S0, *edges)
+    S, lam = S0, torch.full((), 1e-4, dtype=dt, device=dev)
+    cost = _graph_cost(S0, *edges, reduce=reduce)
     for _ in range(iters):
         _, rw, Ji, Jj = _graph_edges(S, *edges, free, scale_mask)
         Bii = torch.einsum("eki,ekj->eij", Ji, Ji)
         Bjj = torch.einsum("eki,ekj->eij", Jj, Jj)
         Bij = torch.einsum("eki,ekj->eij", Ji, Jj)
-        b = plan.sum(torch.cat([-torch.einsum("eki,ek->ei", Ji, rw),
-                                -torch.einsum("eki,ek->ei", Jj, rw)]))
-        Hd = plan.sum(torch.cat([Bii, Bjj]))
+        b = red(plan.sum(torch.cat([-torch.einsum("eki,ek->ei", Ji, rw),
+                                    -torch.einsum("eki,ek->ei", Jj, rw)])))
+        Hd = red(plan.sum(torch.cat([Bii, Bjj])))
         dvec = torch.diagonal(Hd, dim1=-2, dim2=-1)
         damp = lam * torch.clamp(dvec, min=1e-6) + 1e-8
         Hd = Hd + torch.diag_embed(damp)
@@ -640,7 +731,7 @@ def essential_graph_optimize_sparse(S0, kf_valid, kf_fixed, edge_i, edge_j, edge
             vi, vj = v[ei], v[ej]
             ui = torch.einsum("eij,ej->ei", Bii, vi) + torch.einsum("eij,ej->ei", Bij, vj)
             uj = torch.einsum("eji,ej->ei", Bij, vi) + torch.einsum("eij,ej->ei", Bjj, vj)
-            out = plan.sum(torch.cat([ui, uj])) + damp * v
+            out = red(plan.sum(torch.cat([ui, uj]))) + damp * v
             return torch.where(free[:, None], out, v)
 
         bf_ = torch.where(free[:, None], b, torch.zeros_like(b))
@@ -661,23 +752,25 @@ def essential_graph_optimize_sparse(S0, kf_valid, kf_fixed, edge_i, edge_j, edge
                                torch.zeros_like(rz))
             p = zz + beta * p
             rz = rz_new
-        S, lam, cost = _graph_update(S, x * scale_mask, free, cost, lam, edges)
+        S, lam, cost = _graph_update(S, x * scale_mask, free, cost, lam, edges, reduce)
     return PoseGraphResult(S=S, cost=cost)
 
 
 # -- global BA: matrix-free Schur complement + preconditioned CG -------------
 
-def _gba_cost(prob: BAProblem, cam_T, pts, obs_ok, inv_sigma2_levels, K, bf, robust: bool):
+def _gba_cost(prob: BAProblem, cam_T, pts, obs_ok, inv_sigma2_levels, K, bf, robust: bool,
+              reduce=None):
+    red = reduce or _identity
     r, _ = _residual_unified(cam_T[prob.obs_cam.long()], pts[prob.obs_pt.long()],
                              prob.obs_uvr, K, bf)
     inv_s2, comp = _edge_weights(prob.obs_oct, prob.obs_stereo, obs_ok, inv_sigma2_levels)
     chi2 = _edge_chi2(r, inv_s2, comp)
     if not robust:
-        return torch.sum(chi2)
+        return red(torch.sum(chi2))
     delta = _huber_delta(prob.obs_stereo)
     d2 = delta * delta
-    return torch.sum(torch.where(chi2 <= d2, chi2,
-                                 2.0 * delta * torch.sqrt(torch.clamp(chi2, min=1e-12)) - d2))
+    return red(torch.sum(torch.where(chi2 <= d2, chi2,
+                                     2.0 * delta * torch.sqrt(torch.clamp(chi2, min=1e-12)) - d2)))
 
 
 class _GBAPlans(NamedTuple):
@@ -691,31 +784,28 @@ def _gba_plans(prob: BAProblem) -> _GBAPlans:
 
 
 def _assemble_blocks(prob: BAProblem, plans: _GBAPlans, cam_T, pts, obs_ok, inv_sigma2_levels,
-                     K, bf, robust: bool):
+                     K, bf, robust: bool, reduce=None):
     """Per-observation Jacobians and the block pieces of the normal
-    equations (the reference's `.at[].add` scatters as segment sums)."""
-    cam = prob.obs_cam.long()
-    r, Jc, Jp, _ = _edge_jacobians(cam_T[cam], pts[prob.obs_pt.long()], prob.obs_uvr, K, bf)
-    inv_s2, comp = _edge_weights(prob.obs_oct, prob.obs_stereo, obs_ok, inv_sigma2_levels)
-    chi2 = _edge_chi2(r, inv_s2, comp)
-    hw = geo.huber_weight(chi2, _huber_delta(prob.obs_stereo)) if robust \
-        else torch.ones_like(chi2)
-    cam_free = (~prob.cam_fixed) & prob.cam_valid
-    Jc = Jc * cam_free[cam].to(Jc.dtype)[:, None, None]
-    w = (inv_s2 * hw)[:, None] * comp
-    JcW = Jc * w[:, :, None]
-    JpW = Jp * w[:, :, None]
-    Hcc = plans.cam.sum(torch.einsum("oki,okj->oij", JcW, Jc))
-    bc = plans.cam.sum(-torch.einsum("oki,ok->oi", JcW, r))
-    Hpp = plans.pt.sum(torch.einsum("oki,okj->oij", JpW, Jp))
-    bp = plans.pt.sum(-torch.einsum("oki,ok->oi", JpW, r))
+    equations (the reference's `.at[].add` scatters as segment sums, each
+    followed by `reduce`; A stays per observation)."""
+    red = reduce or _identity
+    r, Jc, Jp, JcW, JpW, _, cam_free = _weighted_rows(prob, cam_T, pts, obs_ok,
+                                                      inv_sigma2_levels, K, bf, robust)
+    Hcc = red(plans.cam.sum(torch.einsum("oki,okj->oij", JcW, Jc)))
+    bc = red(plans.cam.sum(-torch.einsum("oki,ok->oi", JcW, r)))
+    Hpp = red(plans.pt.sum(torch.einsum("oki,okj->oij", JpW, Jp)))
+    bp = red(plans.pt.sum(-torch.einsum("oki,ok->oi", JpW, r)))
     A = torch.einsum("oki,okj->oij", JcW, Jp)             # [O, 6, 3]
     return Hcc, bc, Hpp, bp, A, cam_free
 
 
 def _gba_lm_step(prob: BAProblem, plans: _GBAPlans, inv_sigma2_levels, K, bf, carry, it: int,
-                 cg_iters: int = 40, robust_iters: int = 5):
-    """One damped-GN/Schur/PCG iteration of the global BA."""
+                 cg_iters: int = 40, robust_iters: int = 5, reduce=None):
+    """One damped-GN/Schur/PCG iteration of the global BA. `reduce`
+    follows every sum over the observations: the block sums, the two
+    partials of each Schur matvec, the right-hand side, the
+    back-substitution and the cost."""
+    red = reduce or _identity
     cam_T, pts, lam, cost, obs_ok = carry
     robust = it < robust_iters
     dev, dt = cam_T.device, cam_T.dtype
@@ -723,7 +813,7 @@ def _gba_lm_step(prob: BAProblem, plans: _GBAPlans, inv_sigma2_levels, K, bf, ca
     cam = prob.obs_cam.long()
     ptl = prob.obs_pt.long()
     Hcc, bc, Hpp, bp, A, cam_free = _assemble_blocks(prob, plans, cam_T, pts, obs_ok,
-                                                     inv_sigma2_levels, K, bf, robust)
+                                                     inv_sigma2_levels, K, bf, robust, reduce)
     eye6 = torch.eye(6, dtype=dt, device=dev)
     eye3 = torch.eye(3, dtype=dt, device=dev)
     tr6 = torch.diagonal(Hcc, dim1=-2, dim2=-1).sum(-1)
@@ -735,13 +825,13 @@ def _gba_lm_step(prob: BAProblem, plans: _GBAPlans, inv_sigma2_levels, K, bf, ca
 
     def schur_matvec(x):
         y = torch.einsum("cij,cj->ci", Hcc_d, x)
-        sp = plans.pt.sum(torch.einsum("oij,oi->oj", A, x[cam]))
+        sp = red(plans.pt.sum(torch.einsum("oij,oi->oj", A, x[cam])))
         v = torch.einsum("pij,pj->pi", Hpp_inv, sp)
-        y = y - plans.cam.sum(torch.einsum("oij,oj->oi", A, v[ptl]))
+        y = y - red(plans.cam.sum(torch.einsum("oij,oj->oi", A, v[ptl])))
         return torch.where(cam_free[:, None], y, x)
 
     v0 = torch.einsum("pij,pj->pi", Hpp_inv, bp)
-    rhs = bc - plans.cam.sum(torch.einsum("oij,oj->oi", A, v0[ptl]))
+    rhs = bc - red(plans.cam.sum(torch.einsum("oij,oj->oi", A, v0[ptl])))
     rhs = torch.where(cam_free[:, None], rhs, torch.zeros_like(rhs))
     Minv = torch.linalg.inv_ex(Hcc_d + 1e-8 * eye6)[0]
     tiny = torch.full((), 1e-20, dtype=dt, device=dev)
@@ -760,27 +850,29 @@ def _gba_lm_step(prob: BAProblem, plans: _GBAPlans, inv_sigma2_levels, K, bf, ca
         beta = rz_new / torch.where(torch.abs(rz) < 1e-20, tiny, rz)
         p = z + beta * p
         rz = rz_new
-    sp = plans.pt.sum(torch.einsum("oij,oi->oj", A, x[cam]))
+    sp = red(plans.pt.sum(torch.einsum("oij,oi->oj", A, x[cam])))
     dp = torch.einsum("pij,pj->pi", Hpp_inv, bp - sp)
     cam_T_new = torch.where(cam_free[:, None, None], geo.se3_exp(x) @ cam_T, cam_T)
     pts_new = torch.where(prob.pt_valid[:, None], pts + dp, pts)
-    new_cost = _gba_cost(prob, cam_T_new, pts_new, obs_ok, inv_sigma2_levels, K, bf, robust)
+    new_cost = _gba_cost(prob, cam_T_new, pts_new, obs_ok, inv_sigma2_levels, K, bf, robust,
+                         reduce)
     accept = new_cost < cost
     return (torch.where(accept, cam_T_new, cam_T), torch.where(accept, pts_new, pts),
             torch.where(accept, torch.clamp(lam * 0.5, min=1e-9), torch.clamp(lam * 4.0, max=1e6)),
             torch.where(accept, new_cost, cost), obs_ok)
 
 
-def gba_init_carry(prob: BAProblem, inv_sigma2_levels, K, bf):
+def gba_init_carry(prob: BAProblem, inv_sigma2_levels, K, bf, reduce=None):
     """Initial LM carry (cam_T, pts, lam, cost, obs_ok) of the chunked GBA."""
     cost0 = _gba_cost(prob, prob.cam_T, prob.pts, prob.obs_valid, inv_sigma2_levels, K, bf,
-                      True)
+                      True, reduce)
     lam = torch.full((), 1e-4, dtype=prob.cam_T.dtype, device=prob.cam_T.device)
     return (prob.cam_T, prob.pts, lam, cost0, prob.obs_valid)
 
 
 def gba_chunk(prob: BAProblem, inv_sigma2_levels, carry, it0: int, K, bf, n_iters: int = 1,
-              cg_iters: int = 40, robust_iters: int = 5, plans: _GBAPlans = None):
+              cg_iters: int = 40, robust_iters: int = 5, plans: _GBAPlans = None,
+              reduce=None):
     """Advance the chunked GBA by n_iters LM iterations from `carry`: one
     bounded piece of work the host interleaves with frames and can drop
     (the reference's interruptible GBA thread). `plans` caches the
@@ -788,12 +880,13 @@ def gba_chunk(prob: BAProblem, inv_sigma2_levels, carry, it0: int, K, bf, n_iter
     plans = plans or _gba_plans(prob)
     for k in range(n_iters):
         carry = _gba_lm_step(prob, plans, inv_sigma2_levels, K, bf, carry, it0 + k, cg_iters,
-                             robust_iters)
+                             robust_iters, reduce)
     return carry
 
 
 def gba_result(prob: BAProblem, inv_sigma2_levels, K, bf, carry) -> BAResult:
-    """Final chi2 classification of a chunked GBA carry."""
+    """Final chi2 classification of a chunked GBA carry (per observation:
+    no sum to reduce)."""
     cam_T, pts, _, cost, _ = carry
     r, depth = _residual_unified(cam_T[prob.obs_cam.long()], pts[prob.obs_pt.long()],
                                  prob.obs_uvr, K, bf)
@@ -806,12 +899,13 @@ def gba_result(prob: BAProblem, inv_sigma2_levels, K, bf, carry) -> BAResult:
 
 def global_bundle_adjustment(prob: BAProblem, inv_sigma2_levels, K, bf,
                              iters: int = C.GBA_ITERS, cg_iters: int = 40,
-                             robust_iters: int = 5) -> BAResult:
+                             robust_iters: int = 5, reduce=None) -> BAResult:
     """Full-map BA in one call (Optimizer::GlobalBundleAdjustemnt): the
     chunked GBA's carry, `iters` of its LM steps, its final
     classification. The monocular initializer runs it on the two-keyframe
-    map."""
-    carry = gba_init_carry(prob, inv_sigma2_levels, K, bf)
+    map; `parallel/dist_ba.py` runs it on a shard of the observations with
+    an all-reduce as `reduce`."""
+    carry = gba_init_carry(prob, inv_sigma2_levels, K, bf, reduce)
     carry = gba_chunk(prob, inv_sigma2_levels, carry, 0, K, bf, n_iters=iters,
-                      cg_iters=cg_iters, robust_iters=robust_iters)
+                      cg_iters=cg_iters, robust_iters=robust_iters, reduce=reduce)
     return gba_result(prob, inv_sigma2_levels, K, bf, carry)

@@ -3,7 +3,8 @@
 The port's one image codec, for the dataset loaders and the renderer's
 writers: it needs no PIL, cv2 or libpng. It reads non-interlaced 8-bit
 gray, RGB and RGBA and 16-bit gray, with every row filter (None, Sub, Up,
-Average, Paeth); it writes 8-bit and 16-bit gray with filter None.
+Average, Paeth); it writes 8-bit and 16-bit gray and 8-bit RGB with
+filter None.
 
 Colour becomes gray as the JAX package's native reader (csrc/slamio.cc)
 makes it: alpha dropped, 0.299 R + 0.587 G + 0.114 B in f32, and for the
@@ -141,16 +142,19 @@ def _chunk(tag: bytes, body: bytes) -> bytes:
 
 
 def encode(img: np.ndarray, level: int = 6) -> bytes:
-    """[H, W] uint8 or uint16 gray -> PNG bytes (filter None)."""
+    """[H, W] uint8 or uint16 gray, or [H, W, 3] uint8 RGB -> PNG bytes
+    (filter None)."""
     img = np.asarray(img)
-    if img.ndim != 2 or img.dtype not in (np.uint8, np.uint16):
-        raise ValueError("PNG: only 8-bit and 16-bit gray images are written")
-    h, w = img.shape
+    rgb = img.ndim == 3 and img.shape[2] == 3 and img.dtype == np.uint8
+    if not (rgb or (img.ndim == 2 and img.dtype in (np.uint8, np.uint16))):
+        raise ValueError("PNG: only 8-bit and 16-bit gray and 8-bit RGB images are written")
+    h, w = img.shape[:2]
     depth = 8 * img.dtype.itemsize
     rows = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows.view(np.uint8).reshape(h, -1)],
                          axis=1)
-    return (_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0))
+    return (_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 2 if rgb else 0,
+                                                     0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level)) + _chunk(b"IEND", b""))
 
 

@@ -1,16 +1,20 @@
-"""Trace where the monocular path parts between the CPU and the card.
+"""Trace where a sequence parts between the CPU and the card.
 
-The 14 frames of chip_smoke.py's mono path go through one System on the
-CPU and one on the card, in lockstep. Per frame it prints keypoints,
-descriptors, state, inliers, pose, the keyframe decision, the point cursor,
-the live point count and the mapper phase the frame ran, then shutdown's
-mapper drain one phase at a time, and the first step where the two part
-(extraction, tracking, keyframe decision or a mapper phase). Last, the
+The 14 frames of chip_smoke.py's mono path (or, with --seq, a rendered
+RGB-D or stereo sequence read through the dataset loaders, with its
+settings.yaml) go through one System on the CPU and one on the card, in
+lockstep. Per frame it prints keypoints, descriptors, state, inliers,
+pose, each run's camera-centre error against the ground truth (--seq),
+the keyframe decision, the point cursor, the live point count and the
+mapper phase the frame ran, then shutdown's mapper drain one phase at a
+time, and the first step where the two part (extraction, tracking,
+keyframe decision or a mapper phase). For the mono path, last, the
 initializing frame's two-view solve is run on both devices from the CPU
 run's inputs, stage by stage (the 200 F and H hypotheses, their scores, the
 winners, the result).
 
     python3 prev_kernels/trace_mono.py     # from the repository root, on a GPU
+    python3 prev_kernels/trace_mono.py --seq DIR --sensor rgbd|stereo [--frames N]
 
 Its stages are rebuilt from ops/twoview.py's private helpers, so they
 follow that file only as long as two_view_init keeps its structure.
@@ -95,13 +99,28 @@ def trace_two_view(args, K):
     return row
 
 
+_FEATURES = {"monocular": "mono_features", "rgbd": "rgbd_features",
+             "stereo": "stereo_features"}
+
+
+def _track(system, fr):
+    if "depth" in fr:
+        return system.track_rgbd(fr["image"], fr["depth"], fr["timestamp"])
+    if "image_right" in fr:
+        return system.track_stereo(fr["image"], fr["image_right"], fr["timestamp"])
+    return system.track_monocular(fr["image"], fr["timestamp"])
+
+
 def trace_mono(cfg, frames):
     """The mono path's frames through a System on the CPU and one on the
     card in lockstep; per frame: keypoints, descriptors, state, inliers,
     pose, keyframe decision, point cursor, live points, the mapper phase
     the frame ran and the largest keyframe-pose and point differences;
     then shutdown's mapper drain one phase at a time. Prints each step and
-    the first one where cursor, live count, pose or features part."""
+    the first one where cursor, live count, pose or features part. Frames
+    carrying "depth" or "image_right" go through track_rgbd or
+    track_stereo; with "Tcw_gt", each run's camera-centre error is
+    printed too."""
     from orb_slam2_comment_tpu_torch.models import frame as frame_mod
     from orb_slam2_comment_tpu_torch.models import local_mapping as lm
     from orb_slam2_comment_tpu_torch.models import tracking
@@ -110,7 +129,8 @@ def trace_mono(cfg, frames):
 
     phases = lm._phase_list(cfg)
     feats, running, tv_args, steps, at = {}, [None], {}, {"cpu": [], "cuda": []}, [None]
-    orig = {"tracking": tracking.mono_features, "frame": frame_mod.mono_features,
+    fname = _FEATURES[cfg.sensor]
+    orig = {"tracking": getattr(tracking, fname), "frame": getattr(frame_mod, fname),
             "two_view": twoview.two_view_init, "step": lm.mapper_machine_step}
 
     def step_recording(m, n_pts, oc, mp, c):
@@ -125,14 +145,14 @@ def trace_mono(cfg, frames):
         return orig["two_view"](*a, **k)
 
     def recording(mod):
-        def f(image, c):
-            out = orig[mod](image, c)
+        def f(*a):
+            out = orig[mod](*a)
             feats[running[0]] = out[0]
             return out
         return f
 
-    tracking.mono_features = recording("tracking")
-    frame_mod.mono_features = recording("frame")
+    setattr(tracking, fname, recording("tracking"))
+    setattr(frame_mod, fname, recording("frame"))
     twoview.two_view_init = two_view_recording
     lm.mapper_machine_step = step_recording
     first, rows = None, []
@@ -145,13 +165,17 @@ def trace_mono(cfg, frames):
                 running[0] = name
                 ds = s.tracker.ds
                 ran = phases[ds.mp.phase - 1][0] if ds is not None and ds.mp.phase > 0 else "-"
-                out = s.track_monocular(fr["image"], fr["timestamp"])
+                out = _track(s, fr)
                 torch.cuda.synchronize()
                 t = s.tracker
                 st[name] = dict(state=out.state, inliers=out.n_inliers, kf=out.created_kf,
                                 Tcw=None if out.Tcw is None else np.asarray(out.Tcw, np.float64),
                                 cursor=t.n_pts_host, live=int(t.map.pt_valid.sum()),
                                 phase=ran, feats=feats[name])
+                st[name]["centre_err"] = (
+                    None if out.Tcw is None or "Tcw_gt" not in fr else float(np.linalg.norm(
+                        np.linalg.inv(st[name]["Tcw"])[:3, 3]
+                        - np.linalg.inv(fr["Tcw_gt"])[:3, 3])))
             a, b = st["cpu"], st["cuda"]
             fa, fb = a["feats"], b["feats"]
             kp_diff = int((fa.xy.cpu() != fb.xy.cpu()).any(1).sum()
@@ -172,7 +196,8 @@ def trace_mono(cfg, frames):
             row = dict(frame=i, stage=stage, keypoints_differing=kp_diff,
                        descriptors_differing=desc_diff, dT=dT, kf_pose_diff=dk, pt_pos_diff=dp,
                        **{f"{k}_{n}": st[n][k] for n in st
-                          for k in ("state", "inliers", "kf", "cursor", "live", "phase")})
+                          for k in ("state", "inliers", "kf", "cursor", "live", "phase",
+                                    "centre_err")})
             rows.append(row)
             print("# trace_mono " + json.dumps(row), flush=True)
             if stage and first is None:
@@ -212,29 +237,74 @@ def trace_mono(cfg, frames):
                 first = row
         for s in systems.values():
             s.shutdown()
-        # the initializing (last) two-view solve, from the CPU run's inputs
-        same = all(torch.equal(x, y.cpu()) for x, y in zip(tv_args["cpu"][-1],
-                                                            tv_args["cuda"][-1]))
-        print(f"# trace_mono two-view calls {len(tv_args['cpu'])} / {len(tv_args['cuda'])}, "
-              f"the last one's inputs equal: {same}", flush=True)
-        trace_two_view(tv_args["cpu"][-1], cfg.K)
+        if cfg.sensor == "monocular":
+            # the initializing (last) two-view solve, from the CPU run's inputs
+            same = all(torch.equal(x, y.cpu()) for x, y in zip(tv_args["cpu"][-1],
+                                                                tv_args["cuda"][-1]))
+            print(f"# trace_mono two-view calls {len(tv_args['cpu'])} / "
+                  f"{len(tv_args['cuda'])}, the last one's inputs equal: {same}", flush=True)
+            trace_two_view(tv_args["cpu"][-1], cfg.K)
     finally:
-        tracking.mono_features = orig["tracking"]
-        frame_mod.mono_features = orig["frame"]
+        setattr(tracking, fname, orig["tracking"])
+        setattr(frame_mod, fname, orig["frame"])
         twoview.two_view_init = orig["two_view"]
         lm.mapper_machine_step = orig["step"]
     print("# trace_mono_first " + json.dumps(first), flush=True)
     return first, rows
 
 
+def load_sequence(seq, sensor, n_frames=None):
+    """(SlamConfig from SEQ/settings.yaml, frames with their ground truth
+    relative to the first camera) of a sequence rendered by
+    examples/make_datasets.py."""
+    import os
+
+    from orb_slam2_comment_tpu_torch.utils import datasets as ds
+    from orb_slam2_comment_tpu_torch.utils.config import load_yaml_settings
+
+    cfg = load_yaml_settings(os.path.join(seq, "settings.yaml"), sensor)
+    if sensor == "rgbd":
+        items = ds.load_tum_rgbd(seq, os.path.join(seq, "associations.txt"))
+        gt = np.loadtxt(os.path.join(seq, "groundtruth.txt"), ndmin=2)
+        Twc = []
+        for row in gt:
+            x, y, z, w = row[4:8]
+            R = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+                          [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+                          [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]])
+            T = np.eye(4)
+            T[:3, :3], T[:3, 3] = R, row[1:4]
+            Twc.append(T)
+    else:
+        items = ds.load_kitti(seq, stereo=True)
+        Twc = [np.vstack([r.reshape(3, 4), [0, 0, 0, 1]])
+               for r in np.loadtxt(os.path.join(seq, "poses_gt.txt"), ndmin=2)]
+    frames = []
+    for f, T in zip(ds.FramePrefetcher(items[:n_frames]), Twc):
+        # relative to the first camera, where the System starts
+        f["Tcw_gt"] = np.linalg.inv(T) @ Twc[0]
+        frames.append(f)
+    return cfg, frames
+
+
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seq", default=None, help="a rendered sequence folder")
+    ap.add_argument("--sensor", default="rgbd", choices=["rgbd", "stereo"])
+    ap.add_argument("--frames", type=int, default=None, help="the first N frames only")
+    a = ap.parse_args()
     if not torch.cuda.is_available():
         print("trace_mono: no CUDA device", file=sys.stderr)
         return 2
     from orb_slam2_comment_tpu_torch import _build
 
     _build.library()
-    trace_mono(cs.mono_config(), cs.render_mono())
+    if a.seq:
+        trace_mono(*load_sequence(a.seq, a.sensor, a.frames))
+    else:
+        trace_mono(cs.mono_config(), cs.render_mono())
     return 0
 
 

@@ -133,7 +133,7 @@ def test_png_row_filters(ftype):
         np.testing.assert_array_equal(pngio.decode(data), img)
 
 
-@pytest.mark.parametrize("kind", ["gray8", "gray16"])
+@pytest.mark.parametrize("kind", ["gray8", "gray16", "rgb"])
 def test_png_round_trip(kind, tmp_path):
     """pngio writes what it and PIL read back exactly."""
     from orb_slam2_comment_tpu_torch.utils import pngio
@@ -145,7 +145,7 @@ def test_png_round_trip(kind, tmp_path):
         assert got.dtype == img.dtype
         np.testing.assert_array_equal(got, img)
     with pytest.raises(ValueError):
-        pngio.encode(_images()["rgb"])
+        pngio.encode(_images()["rgba"])
 
 
 def _jax_native_reader():

@@ -396,10 +396,52 @@ def _same_renderer():
     assert T.DEPTH_FACTOR_TUM == J.DEPTH_FACTOR_TUM
 
 
+def _same_ar():
+    """utils/ar.py is a verbatim copy."""
+    import inspect
+
+    from orb_slam2_comment_tpu.utils import ar as J
+    from orb_slam2_comment_tpu_torch.utils import ar as T
+
+    assert inspect.getsource(T) == inspect.getsource(J)
+
+
+def _tools_module(name):
+    import importlib
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "tools"))
+    return importlib.import_module(name)
+
+
+def _same_dataset_makers():
+    """The three sequence makers of tools/make_datasets.py and their
+    intrinsics, in the port's examples/make_datasets.py."""
+    from orb_slam2_comment_tpu_torch.examples import make_datasets as T
+
+    J = _tools_module("make_datasets")
+    _same_source(J, T, ("make_room_loop", "make_desk", "make_street"))
+    for k in ("K_TUM", "HW_TUM", "K_KITTI", "HW_KITTI", "BASELINE_KITTI"):
+        assert getattr(T, k) == getattr(J, k), k
+    assert list(T.ALL) == list(J.ALL)
+
+
+def _same_h2h_evaluation():
+    """The trajectory readers and evaluators of tools/head_to_head.py, in
+    the port's examples/head_to_head.py."""
+    from orb_slam2_comment_tpu_torch.examples import head_to_head as T
+
+    J = _tools_module("head_to_head")
+    _same_source(J, T, ("load_tum_traj", "load_kitti_traj", "associate", "evaluate_ate",
+                        "eval_tum", "eval_kitti"))
+    assert T.SEQS == J.SEQS
+
+
 @pytest.mark.parametrize("check", [_same_constants, _same_frames, _same_trajectory_eval,
                                    _same_vocabulary, _same_vocab_training, _same_vocab_text,
                                    _same_settings_readers, _same_dataset_readers,
-                                   _same_renderer],
+                                   _same_renderer, _same_ar, _same_dataset_makers,
+                                   _same_h2h_evaluation],
                          ids=lambda f: f.__name__[6:])
 def test_port_copies_equal_jax(check):
     """The port's own copies of the JAX package's numpy-only modules and of
