@@ -13,7 +13,7 @@ the same capacities with 2000 observations per keyframe). Each kernel is
 timed three ways: the span of one call (`ms`), 100 calls back to back
 (`per_launch_ms`) and calls replayed from a CUDA graph (`device_ms`, no
 host dispatch), beside its plain version, its bound and, for K2, the one
-PyTorch call that computes the same function. Then it drives eight paths
+PyTorch call that computes the same function. Then it drives nine paths
 of the default `System(cfg, device="cuda")` (loop closing on, as bench.py
 builds it) and the distributed BA on their maps, each with the launch
 counts set to 0 just before it and read just after:
@@ -54,6 +54,13 @@ counts set to 0 just before it and read just after:
          the kernels build), run through the port's run_dataset driver on
          its settings.yaml (the default SlamConfig: growth and loop closing
          on) with prestaged frames and 2 runs: ATE < 15 mm.
+  staged the bench config in the two modes outside the default: the loop
+         path's orbit with fused_tracking=False (the staged ladder on the
+         host path, the monolithic mapper per keyframe): every frame
+         tracked, a loop closed, the background GBA applied, ATE < 0.10 m,
+         a bit-identical rerun; and main's frames 0-59 with
+         chunked_mapper=False (the fused step, the monolithic mapper):
+         every frame tracked, ATE < 2 cm, the same keyframes on a rerun.
   dist   parallel/dist_ba.py on the maps of the main and loop paths: NCCL at
          world size 1 (distributed_global_ba on the loop map's full GBA
          problem, distributed_local_ba on the main path's last keyframe
@@ -67,7 +74,8 @@ counts set to 0 just before it and read just after:
 
 K4 is also held to its plain version on every local-BA window of the
 stereo and grow paths, and its worst field error is printed against the
-active observations per window camera.
+active observations per window camera; and on the largest window the
+monolithic mapper built in the staged orbit.
 
     python3 chip_smoke.py [--frames N] [--profile FILE] [--kernels-only]
 
@@ -99,7 +107,7 @@ _K4 = ("orb_slam2_comment_tpu_torch/csrc/lba_build.cu",
 # the paths at 480x640 and 1000 features, and the stereo path at 376x1241
 # and 2000 features: each row reads its kernel's launch count on the paths
 # at its shapes
-_SMALL = ("main", "reloc", "loop", "mono", "facade", "grow", "desk")
+_SMALL = ("main", "reloc", "loop", "mono", "facade", "grow", "desk", "staged")
 KERNEL_ROWS = [
     # name, (source, replaced Pallas call site), kernel counted, paths counted
     ("fast_nms", _K1, "fast_nms", _SMALL),
@@ -117,6 +125,9 @@ KERNEL_ROWS = [
     # K4 on the main path's last local-BA window; counts the dist path's
     # local_bundle_adjustment(cam_major=True)
     ("lba_build@lba", _K4, "lba_build", ("dist",)),
+    # K4 on the largest window the monolithic mapper built in the staged
+    # orbit; counts the staged path
+    ("lba_build@staged", _K4, "lba_build", ("staged",)),
 ]
 K1_K4 = ("fast_nms", "gather_patches", "pose_lm", "lba_build")
 
@@ -636,15 +647,15 @@ def k4_field_err(sp, sk, what):
     return worst
 
 
-def check_k4_window(prep, K, BF):
-    """K4 on a real local-BA window of the stereo path (the one with the
+def check_k4_window(prep, K, BF, path="stereo"):
+    """K4 on a real local-BA window of the `path` path (the one with the
     most valid observations) where the mapper linearizes it: robust over
     every valid observation at the window's start (lba_init), and not
     robust over the observations the prune keeps (lba_prune drops chi2 and
     depth outliers, whose unweighted residuals may be infinite). Then on a
-    dense window at the stereo camera with the real window's capacities
-    (2000 observations per camera, ~95% valid, as the 2000-feature path
-    could fill it). Each field within 1e-3 relative of the plain version, a
+    dense window at the path's camera with the real window's capacities
+    (N_per observations per camera, ~95% valid, as the path could fill
+    it). Each field within 1e-3 relative of the plain version, a
     rerun bit-identical; the row is timed on the real window."""
     from orb_slam2_comment_tpu_torch.ops import lba_cuda, optim
 
@@ -657,12 +668,12 @@ def check_k4_window(prep, K, BF):
     dprep = lba_cuda.prep_problem(dense, inv, F)
     worst = 0.0
     for what, pp, pr, (cam_T, pts, *_, obs_ok), robust in (
-            ("the stereo window", prep, prob, start, True),
-            ("the stereo window", prep, prob, pruned, False),
-            ("the dense stereo window", dprep, dense, (dense.cam_T, dense.pts, dense.obs_valid),
-             True),
-            ("the dense stereo window", dprep, dense, (dense.cam_T, dense.pts, dense.obs_valid),
-             False)):
+            (f"the {path} window", prep, prob, start, True),
+            (f"the {path} window", prep, prob, pruned, False),
+            (f"the dense {path} window", dprep, dense,
+             (dense.cam_T, dense.pts, dense.obs_valid), True),
+            (f"the dense {path} window", dprep, dense,
+             (dense.cam_T, dense.pts, dense.obs_valid), False)):
         sk = lba_cuda.build_system(pp, cam_T, pts, obs_ok, robust, K, BF)
         sp = optim.build_system_plain(pr, inv, F, cam_T, pts, obs_ok, robust, K, BF)
         again = lba_cuda.build_system(pp, cam_T, pts, obs_ok, robust, K, BF)
@@ -684,7 +695,7 @@ def check_k4_window(prep, K, BF):
                                                          dense.obs_valid, True, K, BF)),
                 **bound(k4_bytes(NC, NP, O, n_dense, F), K4_OPS_PER_OBS * n_dense))
     res.update({f"dense_{k}": v for k, v in dres.items()}, dense_valid_obs=n_dense)
-    print(f"# K4 lba_build@stereo: {NC} cams ({F} free) x {NP} pts x {O} obs ({n_obs} valid, "
+    print(f"# K4 lba_build@{path}: {NC} cams ({F} free) x {NP} pts x {O} obs ({n_obs} valid, "
           f"{int(pruned[5].sum())} after the prune, {prep.N_per} per camera); worst field rel "
           f"err {worst:.2e} with the dense window; {res['ms']:.4f} ms, {res['device_ms']:.4f} "
           f"from a graph, {res['per_launch_ms']:.4f} per launch back to back (plain "
@@ -780,6 +791,18 @@ def make_system(cfg, dev):
     return system
 
 
+def host_syncs(fn):
+    """fn() under torch's sync debug mode: (its result, host syncs)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
 def run_sequence(cfg, frames, dev, count_syncs_from=None, profile=None):
     """System.track_rgbd over the frames. Returns (system, per-frame
     records, per-frame seconds, phases run, host syncs per counted frame)."""
@@ -797,16 +820,14 @@ def run_sequence(cfg, frames, dev, count_syncs_from=None, profile=None):
             prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                       torch.profiler.ProfilerActivity.CUDA])
             prof.__enter__()
-        with warnings.catch_warnings(record=True) as caught:
-            if counting:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode(1)
-            t0 = time.perf_counter()
+        t0 = time.perf_counter()
+        if counting:
+            out, n = host_syncs(lambda: system.track_rgbd(f["image"], f["depth"],
+                                                          f["timestamp"]))
+            syncs.append(n)
+        else:
             out = system.track_rgbd(f["image"], f["depth"], f["timestamp"])
-            secs.append(time.perf_counter() - t0)
-            if counting:
-                torch.cuda.set_sync_debug_mode(0)
-                syncs.append(sum("synchroniz" in str(w.message) for w in caught))
+        secs.append(time.perf_counter() - t0)
         if out.state != 1:
             raise AssertionError(f"frame {i}: tracking state {out.state}")
         recs.append((out.Tcw, out.n_inliers, out.created_kf))
@@ -940,14 +961,20 @@ def render_orbit():
     return frames
 
 
-def run_orbit(cfg, frames, dev, chunk_events=None):
+def run_orbit(cfg, frames, dev, chunk_events=None, syncs=None):
     """Returns (system, poses, per-frame seconds, loops closed after each
-    frame, frames that ended with a global BA in flight)."""
+    frame, frames that ended with a global BA in flight). `syncs`, when a
+    list, receives the host syncs of each frame from frame 10 on."""
     system = make_system(cfg, dev)
     poses, secs, loops, in_flight = [], [], [], 0
     for i, f in enumerate(frames):
         t0 = time.perf_counter()
-        out = system.track_rgbd(f["image"], f["depth"], f["timestamp"])
+        if syncs is not None and i >= 10:
+            out, n = host_syncs(lambda: system.track_rgbd(f["image"], f["depth"],
+                                                          f["timestamp"]))
+            syncs.append(n)
+        else:
+            out = system.track_rgbd(f["image"], f["depth"], f["timestamp"])
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         if out.state != 1:
@@ -1018,6 +1045,106 @@ def loop_path(cfg, frames, dev, keep=None):
                 gba_frames_in_flight=in_flight, gba_applied=lc.n_gba_applied,
                 n_kfs=system.tracker.n_kfs, ate_m=ate, rerun_identical_frames=len(frames),
                 reference_cpu=dict(loop_pair=[22, 0], n_kfs=27, ate_m=0.02025))
+
+
+def staged_path(cfg, orbit, frames, dev, windows, main):
+    """The staged tracking ladder and the monolithic local mapper at the
+    bench config, run once and rerun. (a) The loop path's orbit with
+    fused_tracking=False (the JAX package's own staged configuration,
+    tests/test_loop_closing.py:34): every frame tracked on the host path
+    with no device state, a loop closed and the background GBA applied,
+    ATE < 0.10 m, a bit-identical rerun. (b) Main's frames 0-59 with
+    chunked_mapper=False (the fused step, the mapper a keyframe callback):
+    every frame tracked, ATE < 2 cm, no step of the chunked machine, and a
+    rerun with the same poses bit for bit and the same keyframes. The
+    local-BA windows of (a)'s first run are kept in `windows` for K4's
+    check. Frame p50/p90 and host syncs per frame (counted on the reruns
+    from frame 10) beside the main path's."""
+    from orb_slam2_comment_tpu_torch.models import local_mapping as lm
+    from orb_slam2_comment_tpu_torch.ops import lba_cuda
+    from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
+
+    acfg = dataclasses.replace(cfg, fused_tracking=False)
+    prep = lba_cuda.prep_problem
+
+    def keep(*a, **k):
+        windows.append(prep(*a, **k))
+        return windows[-1]
+
+    lba_cuda.prep_problem = keep
+    try:
+        system, poses, secs, loops, in_flight = run_orbit(acfg, orbit, dev)
+    finally:
+        lba_cuda.prep_problem = prep
+    torch.cuda.synchronize()
+    lc = system.loop_closer
+    if system.tracker.ds is not None or system.mapper.process not in \
+            system.tracker.new_kf_callbacks:
+        raise AssertionError("staged: a device state, or no monolithic mapper callback")
+    if system.n_loops < 1 or lc.n_gba_applied < 1:
+        raise AssertionError(f"staged orbit: {system.n_loops} loops, {lc.n_gba_applied} "
+                             f"global BAs applied")
+    ate = ate_rmse(poses, [f["Tcw_gt"] for f in orbit])
+    if not (np.all(np.isfinite(np.stack(poses))) and ate < 0.10):
+        raise AssertionError(f"staged orbit ATE {ate} m")
+    if not windows:
+        raise AssertionError("staged orbit: the monolithic mapper built no local-BA window")
+    a_syncs = []
+    _, poses2, _, _, _ = run_orbit(acfg, orbit, dev, syncs=a_syncs)
+    for i, (x, y) in enumerate(zip(poses, poses2)):
+        if not np.array_equal(x, y):
+            raise AssertionError(f"staged orbit rerun differs at frame {i}")
+    close = int(np.argmax(np.asarray(loops) >= 1))
+
+    bcfg = dataclasses.replace(cfg, chunked_mapper=False)
+    bframes = frames[:60]
+    # the chunked machine must take no step in either monolithic run
+    step, machine_steps = lm.mapper_machine_step, [0]
+
+    def counted_step(*a, **k):
+        machine_steps[0] += 1
+        return step(*a, **k)
+
+    lm.mapper_machine_step = counted_step
+    try:
+        bsys, brecs, bsecs, _, _ = run_sequence(bcfg, bframes, dev)
+        bsys2, brecs2, _, _, b_syncs = run_sequence(bcfg, bframes, dev, count_syncs_from=10)
+    finally:
+        lm.mapper_machine_step = step
+    if bsys.mapper.process not in bsys.tracker.new_kf_callbacks or machine_steps[0]:
+        raise AssertionError(f"monolithic: no mapper callback, or {machine_steps[0]} "
+                             f"machine steps")
+    bposes = [np.asarray(r[0], np.float64) for r in brecs]
+    bate = ate_rmse(bposes, [f["Tcw_gt"] for f in bframes])
+    if not (np.all(np.isfinite(np.stack(bposes))) and bate < 0.02):
+        raise AssertionError(f"monolithic ATE {bate} m")
+    for i, (x, y) in enumerate(zip(brecs, brecs2)):
+        if x[1:] != y[1:] or not np.array_equal(x[0], y[0]):
+            raise AssertionError(f"monolithic rerun differs at frame {i}")
+    if bsys2.tracker.n_kfs != bsys.tracker.n_kfs:
+        raise AssertionError(f"monolithic rerun: {bsys2.tracker.n_kfs} keyframes, not "
+                             f"{bsys.tracker.n_kfs}")
+
+    def lat(xs, syncs):
+        dt = np.asarray(xs[8:]) * 1e3
+        return dict(p50_ms=float(np.percentile(dt, 50)), p90_ms=float(np.percentile(dt, 90)),
+                    max_ms=float(dt.max()), host_syncs_per_frame_median=float(np.median(syncs)),
+                    host_syncs_per_frame_max=int(max(syncs)))
+
+    cand, kf = (int(x) for x in lc.loop_edges[0][:2])
+    return dict(
+        frames_run=2 * len(orbit) + 2 * len(bframes),
+        staged_orbit=dict(frames=len(orbit), **lat(secs, a_syncs), n_kfs=system.tracker.n_kfs,
+                          n_loops=system.n_loops, loop_pair=[kf, cand], closing_frame=close,
+                          closing_frame_ms=secs[close] * 1e3, gba_applied=lc.n_gba_applied,
+                          gba_frames_in_flight=in_flight, ate_m=ate, ba_windows=len(windows),
+                          rerun_identical_frames=len(orbit)),
+        monolithic=dict(frames=len(bframes), **lat(bsecs, b_syncs), n_kfs=bsys.tracker.n_kfs,
+                        kf_frames=[i for i, r in enumerate(brecs) if r[2]], ate_m=bate,
+                        rerun_n_kfs=bsys2.tracker.n_kfs, rerun_identical_frames=len(bframes),
+                        machine_steps=machine_steps[0]),
+        main=dict(p50_ms=main["p50_ms"], p90_ms=main["p90_ms"],
+                  host_syncs_per_frame_median=main["host_syncs_per_frame_median"]))
 
 
 # the street configuration of tools/make_datasets.py:54-62 (KITTI stereo)
@@ -2007,6 +2134,9 @@ def run_all(args, dev, kind, smi, desk_seq, desk_proc):
         raise AssertionError(f"rendering the desk head failed ({desk_proc.returncode})")
     print(f"# desk head rendered (waited {time.perf_counter() - t0:.1f} s more)", flush=True)
     run("desk", lambda: desk_path(desk_seq, dev, smi), K1_K4)
+    swindows = []
+    run("staged", lambda: staged_path(cfg, orbit, frames, dev, swindows, results["main"]),
+        K1_K4)
     k4_window = []
     run("dist", lambda: dist_path(cfg, main_keep, loop_keep, dev, k4_window), ("lba_build",))
     frames_run["vo"] = 10
@@ -2014,7 +2144,8 @@ def run_all(args, dev, kind, smi, desk_seq, desk_proc):
                          ("stereo", "gather_patches", 2), ("mono", "fast_nms", 1),
                          ("facade", "fast_nms", 1), ("facade", "gather_patches", 1),
                          ("grow", "fast_nms", 1), ("grow", "gather_patches", 1),
-                         ("desk", "fast_nms", 1), ("desk", "gather_patches", 1)):
+                         ("desk", "fast_nms", 1), ("desk", "gather_patches", 1),
+                         ("staged", "fast_nms", 1), ("staged", "gather_patches", 1)):
         if per_path[path][k] != per * frames_run[path]:
             raise AssertionError(f"{k} launched {per_path[path][k]} times over "
                                  f"{frames_run[path]} {path} frames, not {per} per frame")
@@ -2027,6 +2158,9 @@ def run_all(args, dev, kind, smi, desk_seq, desk_proc):
     # K4 on the main path's last local-BA window, which the dist path's
     # local_bundle_adjustment solved
     checks.append(check_k4_lba(*k4_window[0], cfg.K, cfg.bf))
+    # K4 on the largest local-BA window of the monolithic mapper
+    checks.append(check_k4_window(max(swindows, key=lambda w: int(w.prob.obs_valid.sum())),
+                                  cfg.K, cfg.bf, "staged"))
 
     rows = []
     for (name, (src, rep), kern, paths), res in zip(KERNEL_ROWS, checks, strict=True):

@@ -1,9 +1,11 @@
 """Public API — the port of `orb_slam2_comment_tpu/models/system.py` (the
 reference's System class) for RGB-D, stereo and monocular input.
 
-`System(cfg)` wires tracking, the chunked local mapper, the keyframe
-database, relocalization and — with `enable_loop_closing` (the config's
-default, True) — the loop closer with its chunked background global BA.
+`System(cfg)` wires tracking, the local mapper (chunked inside the frame
+step by default; with `cfg.chunked_mapper` or `cfg.fused_tracking` False
+the monolithic `LocalMapper`, run per keyframe), the keyframe database,
+relocalization and — with `enable_loop_closing` (the config's default,
+True) — the loop closer with its chunked background global BA.
 `track_rgbd(image, depth_map, timestamp)`, `track_stereo(image_left,
 image_right, timestamp)` and `track_monocular(image, timestamp)`, each for
 its `cfg.sensor`, auto-reset a map lost with at most 5 keyframes (not in
@@ -33,6 +35,7 @@ import torch
 
 from orb_slam2_comment_tpu_torch.models import map_state as ms
 from orb_slam2_comment_tpu_torch.models.keyframe_database import KeyFrameDatabase
+from orb_slam2_comment_tpu_torch.models.local_mapping import LocalMapper
 from orb_slam2_comment_tpu_torch.models.loop_closing import LoopCloser
 from orb_slam2_comment_tpu_torch.models.relocalization import AdaptiveRelocalizer
 from orb_slam2_comment_tpu_torch.models.tracking import (
@@ -101,6 +104,11 @@ class System:
         """A new tracker with its hooks, then the database side once a
         vocabulary exists (System::System, src/System.cc:54-110)."""
         self.tracker = Tracker(self.cfg, self.device)
+        self.mapper = LocalMapper(self.cfg, self.tracker)
+        if not (self.cfg.chunked_mapper and self.cfg.fused_tracking):
+            # the chunked mapper runs inside the frame step; this callback
+            # would map every keyframe twice there
+            self.tracker.new_kf_callbacks.append(self.mapper.process)
         self.db: Optional[KeyFrameDatabase] = None
         self.loop_closer: Optional[LoopCloser] = None
         self._gate_active = False
@@ -150,6 +158,7 @@ class System:
         flight carries on: growth keeps every id, and its result is padded
         to the grown map when applied."""
         self.cfg = new_cfg
+        self.mapper.cfg = new_cfg
         if self.loop_closer is not None:
             self.loop_closer.cfg = new_cfg
         if self.db is not None:

@@ -151,15 +151,18 @@ def test_orbit_closes_the_same_loop_as_jax():
 
 
 def test_slice_refuses_what_it_does_not_port():
-    """The monolithic mapper and the staged ladder raise; capacity growth
-    and localization-only mode are admitted."""
+    """A sensor the port does not run raises; the monolithic mapper, the
+    staged ladder, capacity growth and localization-only mode are
+    admitted."""
     from orb_slam2_comment_tpu_torch.models.system import System
     from orb_slam2_comment_tpu_torch.utils.config import SlamConfig
 
     base = dict(_cfg_kw(), max_keyframes=8, max_points=1024)
+    with pytest.raises(NotImplementedError):
+        System(SlamConfig(**dict(base, sensor="rgbd_imu")), device="cpu")
     for kw in (dict(chunked_mapper=False), dict(fused_tracking=False)):
-        with pytest.raises(NotImplementedError):
-            System(SlamConfig(**dict(base, **kw)), device="cpu")
+        s = System(SlamConfig(**dict(base, **kw)), device="cpu")
+        assert s.mapper.process in s.tracker.new_kf_callbacks
     assert System(SlamConfig(**dict(base, localization_only=True)),
                   device="cpu").cfg.localization_only
     assert System(SlamConfig(**dict(base, grow_capacity=True)), device="cpu").cfg.grow_capacity
