@@ -13,7 +13,7 @@ the same capacities with 2000 observations per keyframe). Each kernel is
 timed three ways: the span of one call (`ms`), 100 calls back to back
 (`per_launch_ms`) and calls replayed from a CUDA graph (`device_ms`, no
 host dispatch), beside its plain version, its bound and, for K2, the one
-PyTorch call that computes the same function. Then it drives nine paths
+PyTorch call that computes the same function. Then it drives ten paths
 of the default `System(cfg, device="cuda")` (loop closing on, as bench.py
 builds it) and the distributed BA on their maps, each with the launch
 counts set to 0 just before it and read just after:
@@ -22,6 +22,14 @@ counts set to 0 just before it and read just after:
          tracks, keyframes, local BA and loop detection happen, the
          keyframe database indexes every keyframe, a rerun is bit-identical
          and the trajectory error is small;
+  pipeline bench.py's program over main's frames (warm-up resolved
+         pipeline_lag frames late until 6 keyframes exist, then prestaged
+         images), once with no output read in the timed loop and once with
+         out.state read on every frame, each run twice: all four runs give
+         bit-identical trajectories, keyframes and points; stage A
+         (extraction) runs on its own stream, and a torch.profiler trace of
+         20 frames shows K1 on another stream than K3; fps, p50/p90/p99,
+         drain, host syncs and device-busy ms per frame for both ways;
   reloc  frames 0-79, 3 textureless frames (LOST), then frames 40-79 again:
          the first returning frame relocalizes through the batched K3;
   loop   the orbit of tests/test_loop_closing.py (56 frames) at the bench
@@ -107,7 +115,7 @@ _K4 = ("orb_slam2_comment_tpu_torch/csrc/lba_build.cu",
 # the paths at 480x640 and 1000 features, and the stereo path at 376x1241
 # and 2000 features: each row reads its kernel's launch count on the paths
 # at its shapes
-_SMALL = ("main", "reloc", "loop", "mono", "facade", "grow", "desk", "staged")
+_SMALL = ("main", "pipeline", "reloc", "loop", "mono", "facade", "grow", "desk", "staged")
 KERNEL_ROWS = [
     # name, (source, replaced Pallas call site), kernel counted, paths counted
     ("fast_nms", _K1, "fast_nms", _SMALL),
@@ -791,8 +799,21 @@ def make_system(cfg, dev):
     return system
 
 
+def resolved(out):
+    """A track_* output with its frame resolved: reading a field of the
+    pipeline's lazy output waits for the frame, so a timed call that the
+    caller reads includes this."""
+    out.state
+    return out
+
+
 def host_syncs(fn):
-    """fn() under torch's sync debug mode: (its result, host syncs)."""
+    """fn() under torch's sync debug mode: (its result, host syncs). The
+    pipeline's waits on a transfer event (a stats batch or detection pack
+    not landed yet), which the debug mode does not see, count too."""
+    from orb_slam2_comment_tpu_torch.models import tracking
+
+    w0 = tracking.transfer_waits
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode(1)
@@ -800,7 +821,8 @@ def host_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    return out, (sum("synchroniz" in str(w.message) for w in caught)
+                 + tracking.transfer_waits - w0)
 
 
 def run_sequence(cfg, frames, dev, count_syncs_from=None, profile=None):
@@ -822,11 +844,11 @@ def run_sequence(cfg, frames, dev, count_syncs_from=None, profile=None):
             prof.__enter__()
         t0 = time.perf_counter()
         if counting:
-            out, n = host_syncs(lambda: system.track_rgbd(f["image"], f["depth"],
-                                                          f["timestamp"]))
+            out, n = host_syncs(lambda: resolved(system.track_rgbd(f["image"], f["depth"],
+                                                                   f["timestamp"])))
             syncs.append(n)
         else:
-            out = system.track_rgbd(f["image"], f["depth"], f["timestamp"])
+            out = resolved(system.track_rgbd(f["image"], f["depth"], f["timestamp"]))
         secs.append(time.perf_counter() - t0)
         if out.state != 1:
             raise AssertionError(f"frame {i}: tracking state {out.state}")
@@ -894,6 +916,236 @@ def main_path(cfg, frames, dev, profile, keep=None):
                 inliers_median=float(np.median([r[1] for r in recs[1:]])))
 
 
+def _stage_streams(log):
+    """Wrap the pipeline's stage A (extraction) and stage B (tracking) to
+    log the stream each ran on; returns the undo."""
+    from orb_slam2_comment_tpu_torch.models import tracking
+
+    a, b = tracking._extract_stage, tracking._track_stage_rgbd_core
+
+    def stage_a(*x, **k):
+        log.append(("A", torch.cuda.current_stream().stream_id))
+        return a(*x, **k)
+
+    def stage_b(*x, **k):
+        log.append(("B", torch.cuda.current_stream().stream_id))
+        return b(*x, **k)
+
+    tracking._extract_stage, tracking._track_stage_rgbd_core = stage_a, stage_b
+
+    def undo():
+        tracking._extract_stage, tracking._track_stage_rgbd_core = a, b
+    return undo
+
+
+def trace_kernels(prof, path):
+    """Device events of a torch.profiler run from its chrome trace: a list
+    of (name, stream, start us, duration us) for kernels, copies and
+    sets."""
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    return [(e["name"], e.get("args", {}).get("stream"), float(e["ts"]), float(e["dur"]))
+            for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+            and "dur" in e]
+
+
+def busy_ms(events):
+    """Device time covered by at least one event (the union over streams)."""
+    spans = sorted((t, t + d) for _, _, t, d in events)
+    total, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def run_pipelined(cfg, frames, dev, read_every, profile=None, syncs=None, keep=None):
+    """bench.py's program through System.track_rgbd: 8 warm-up frames read
+    one by one, more (resolved pipeline_lag frames late, as bench.py's
+    warm-up does) until 6 keyframes exist, then the remaining frames'
+    images and depth maps staged on the card and tracked in a timed loop
+    with no output read (read_every: out.state read on every frame), the
+    pipeline drained at the end and charged to the last frame. `profile`,
+    a file name, traces 20 timed frames (from the 21st where there are
+    40) with torch.profiler; `syncs`, a
+    list, receives each timed call's host syncs; `keep`, a dict, receives
+    the local-BA windows and the last pose_optimize calls of the final
+    drain. Returns (system, per-frame ms, drain ms, n_warm, trace events)."""
+    from orb_slam2_comment_tpu_torch.models.frame import depth_to_tensor
+    from orb_slam2_comment_tpu_torch.ops import lba_cuda, optim
+
+    system = make_system(cfg, dev)
+    t = system.tracker
+    n_warm = 8
+    for i, f in enumerate(frames[:n_warm]):
+        if system.track_rgbd(f["image"], f["depth"], f["timestamp"]).state != 1:
+            raise AssertionError(f"pipeline warm-up frame {i} not tracked")
+    i = n_warm
+    while i < len(frames) - 30 and (i < n_warm + 6 or t.n_kfs < 6):
+        system.track_rgbd(frames[i]["image"], frames[i]["depth"], frames[i]["timestamp"])
+        t._flush_upto(i - cfg.pipeline_lag)
+        i += 1
+    n_warm = i
+    t._flush_all()
+    staged = [(torch.from_numpy(f["image"]).to(dev), depth_to_tensor(f["depth"], dev),
+               f["timestamp"]) for f in frames[n_warm:]]
+    torch.cuda.synchronize()
+    prep, po = lba_cuda.prep_problem, optim.pose_optimize
+    if keep is not None:
+        keep.setdefault("windows", [])
+
+        def kept_window(*a, **k):
+            keep["windows"].append(prep(*a, **k))
+            return keep["windows"][-1]
+
+        lba_cuda.prep_problem = kept_window
+    prof, events = None, []
+    p0 = min(20, len(staged) - 20)   # the 20 traced frames
+    if profile is not None and p0 < 0:
+        raise AssertionError(f"pipeline: {len(staged)} timed frames, fewer than 20 to trace")
+    try:
+        stamps = [time.perf_counter()]
+        for k, (im, dm, ts) in enumerate(staged):
+            if profile is not None and k == p0:
+                torch.cuda.synchronize()
+                prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            call = ((lambda: resolved(system.track_rgbd(im, dm, ts))) if read_every
+                    else (lambda: system.track_rgbd(im, dm, ts)))
+            if syncs is not None:
+                out, n = host_syncs(call)
+                syncs.append(n)
+            else:
+                out = call()
+            if read_every and out.state != 1:
+                raise AssertionError(f"pipeline frame {n_warm + k}: state {out.state}")
+            stamps.append(time.perf_counter())
+            if prof is not None and k == p0 + 19:
+                torch.cuda.synchronize()
+                prof.__exit__(None, None, None)
+                events = trace_kernels(prof, profile)
+                prof = None
+        t_drain = time.perf_counter()
+        if keep is not None:
+            keep["calls"] = []
+
+            def recording(*a, **k):
+                keep["calls"].append((a, k))
+                return po(*a, **k)
+
+            optim.pose_optimize = recording
+        t._flush_upto(1 << 60)
+        optim.pose_optimize = po
+        t._drain_mapper()
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    finally:
+        lba_cuda.prep_problem, optim.pose_optimize = prep, po
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    dt = np.diff(np.asarray(stamps)) * 1e3
+    dt[-2] += dt[-1]   # the drain charged to the last frame, as bench.py does
+    system.shutdown()
+    return system, dt[:-1], (stamps[-1] - t_drain) * 1e3, n_warm, events
+
+
+def pipeline_state(system):
+    """What the bit-identity checks compare: the trajectory records, the
+    keyframe count, live points and keyframe poses."""
+    t = system.tracker
+    return dict(traj=[(ts, np.asarray(T), ref, st) for ts, T, ref, st in t.trajectory],
+                n_kfs=t.n_kfs, live=int(t.map.pt_valid.sum()),
+                kf_valid=t.map.kf_valid.cpu().numpy(), kf_pose=t.map.kf_pose.cpu().numpy())
+
+
+def same_state(a, b, what):
+    if (a["n_kfs"], a["live"], len(a["traj"])) != (b["n_kfs"], b["live"], len(b["traj"])):
+        raise AssertionError(f"{what}: keyframes, live points or trajectory length differ "
+                             f"({a['n_kfs']}, {a['live']}, {len(a['traj'])} against "
+                             f"{b['n_kfs']}, {b['live']}, {len(b['traj'])})")
+    for i, (x, y) in enumerate(zip(a["traj"], b["traj"])):
+        if x[0] != y[0] or x[2:] != y[2:] or not np.array_equal(x[1], y[1]):
+            raise AssertionError(f"{what}: trajectory record {i} differs")
+    if not (np.array_equal(a["kf_valid"], b["kf_valid"])
+            and np.array_equal(a["kf_pose"], b["kf_pose"])):
+        raise AssertionError(f"{what}: keyframe poses differ")
+
+
+def pipeline_path(cfg, frames, dev, keep):
+    """bench.py's program on the card in two ways over main's frames: (i)
+    no output read in the timed loop, images prestaged (bench.py's
+    protocol), (ii) out.state read on every frame. Each is run twice, the
+    second time with host syncs counted per call and torch.profiler over
+    20 timed frames. Hard checks: (i) is bit-identical to its rerun and to
+    (ii) and (ii)'s rerun (trajectory records, keyframes, live points,
+    keyframe poses), every frame is tracked, ATE < 2 cm, stage A ran on
+    another stream than stage B, and the trace shows K1 on another stream
+    than K3. `keep` receives (i)'s local-BA windows and its last
+    pose_optimize calls for the kernel checks."""
+    from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    runs, streams = {}, []
+    undo = _stage_streams(streams)
+    try:
+        for name, read_every in (("pipelined", False), ("per_frame", True)):
+            system, dt, drain, n_warm, _ = run_pipelined(
+                cfg, frames, dev, read_every, keep=keep if name == "pipelined" else None)
+            syncs = []
+            system2, _, _, _, events = run_pipelined(
+                cfg, frames, dev, read_every, syncs=syncs,
+                profile=os.path.join(ROOT, "build", f"pipeline_{name}.json"))
+            runs[name] = dict(system=system, dt=dt, drain=drain, n_warm=n_warm, syncs=syncs,
+                              events=events, state=pipeline_state(system),
+                              rerun=pipeline_state(system2))
+    finally:
+        undo()
+    ref = runs["pipelined"]["state"]
+    same_state(ref, runs["pipelined"]["rerun"], "pipelined rerun")
+    same_state(ref, runs["per_frame"]["state"], "per-frame-resolved run")
+    same_state(ref, runs["per_frame"]["rerun"], "per-frame-resolved rerun")
+    if len(ref["traj"]) != len(frames) or any(r[3] != 1 for r in ref["traj"]):
+        raise AssertionError("pipeline: not every frame tracked")
+    poses = [np.asarray(T, np.float64) for _, T in runs["pipelined"]["system"]._frame_poses()]
+    ate = ate_rmse(poses, [f["Tcw_gt"] for f in frames])
+    if not ate < 0.02:
+        raise AssertionError(f"pipeline ATE {ate} m")
+    a_streams = {s for k, s in streams if k == "A"}
+    b_streams = {s for k, s in streams if k == "B"}
+    if not a_streams or not b_streams or a_streams & b_streams:
+        raise AssertionError(f"stage A ran on streams {a_streams}, stage B on {b_streams}")
+    out = dict(frames=len(frames), frames_run=4 * len(frames), n_kfs=ref["n_kfs"],
+               live_points=ref["live"], ate_m=ate, bit_identical_runs=4,
+               stage_a_streams=sorted(a_streams), stage_b_streams=sorted(b_streams))
+    for name, r in runs.items():
+        dt, ev = r["dt"], r["events"]
+        k1 = {s for n, s, _, _ in ev if "fast_nms_levels_kernel" in n}
+        k3 = {s for n, s, _, _ in ev if "pose_lm_kernel" in n}
+        if not k1 or not k3 or k1 & k3:
+            raise AssertionError(f"{name}: the trace shows K1 on streams {k1}, K3 on {k3} "
+                                 f"({len(ev)} device events)")
+        out[name] = dict(
+            timed=len(dt), warm=r["n_warm"], fps=len(dt) / (dt.sum() / 1e3),
+            p50_ms=float(np.percentile(dt, 50)), p90_ms=float(np.percentile(dt, 90)),
+            p99_ms=float(np.percentile(dt, 99)), max_ms=float(dt.max()), drain_ms=r["drain"],
+            host_syncs=float(np.mean(r["syncs"])),
+            host_syncs_per_frame_median=float(np.median(r["syncs"])),
+            device_busy_ms_per_frame=busy_ms(ev) / 20, k1_streams=sorted(k1),
+            k3_streams=sorted(k3))
+    print(f"# pipeline: pipelined {out['pipelined']['fps']:.2f} fps, p50/p90/p99 "
+          f"{out['pipelined']['p50_ms']:.2f}/{out['pipelined']['p90_ms']:.2f}/"
+          f"{out['pipelined']['p99_ms']:.2f} ms, drain {out['pipelined']['drain_ms']:.1f} ms, "
+          f"{out['pipelined']['host_syncs']:.2f} host syncs and "
+          f"{out['pipelined']['device_busy_ms_per_frame']:.2f} device-busy ms per frame; "
+          f"per-frame-resolved {out['per_frame']['fps']:.2f} fps, p50/p90/p99 "
+          f"{out['per_frame']['p50_ms']:.2f}/{out['per_frame']['p90_ms']:.2f}/"
+          f"{out['per_frame']['p99_ms']:.2f} ms, {out['per_frame']['host_syncs']:.2f} syncs, "
+          f"{out['per_frame']['device_busy_ms_per_frame']:.2f} busy ms", flush=True)
+    return out
+
+
 def reloc_path(cfg, frames, dev):
     """Frames 0-79, three textureless frames (LOST), then frame 40 and
     41-79 again with later timestamps: the first returning frame must
@@ -914,7 +1166,7 @@ def reloc_path(cfg, frames, dev):
     for _ in range(3):
         ts += 1.0 / 30
         t0 = time.perf_counter()
-        state = system.track_rgbd(blank, no_depth, ts).state
+        state = resolved(system.track_rgbd(blank, no_depth, ts)).state
         torch.cuda.synchronize()
         lost_ms.append((time.perf_counter() - t0) * 1e3)
         if state != LOST:
@@ -924,7 +1176,7 @@ def reloc_path(cfg, frames, dev):
         ts += 1.0 / 30
         b0 = lm_cuda.pose_optimize_lm.batched_launches
         t0 = time.perf_counter()
-        out = system.track_rgbd(f["image"], f["depth"], ts)
+        out = resolved(system.track_rgbd(f["image"], f["depth"], ts))
         torch.cuda.synchronize()
         ret_ms.append((time.perf_counter() - t0) * 1e3)
         if out.state != OK:
@@ -970,11 +1222,11 @@ def run_orbit(cfg, frames, dev, chunk_events=None, syncs=None):
     for i, f in enumerate(frames):
         t0 = time.perf_counter()
         if syncs is not None and i >= 10:
-            out, n = host_syncs(lambda: system.track_rgbd(f["image"], f["depth"],
-                                                          f["timestamp"]))
+            out, n = host_syncs(lambda: resolved(system.track_rgbd(f["image"], f["depth"],
+                                                                   f["timestamp"])))
             syncs.append(n)
         else:
-            out = system.track_rgbd(f["image"], f["depth"], f["timestamp"])
+            out = resolved(system.track_rgbd(f["image"], f["depth"], f["timestamp"]))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         if out.state != 1:
@@ -1211,7 +1463,7 @@ def run_sensor(cfg, frames, dev, track):
     recs, secs = [], []
     for f in frames:
         t0 = time.perf_counter()
-        out = track(system, f)
+        out = resolved(track(system, f))
         secs.append(time.perf_counter() - t0)
         recs.append((None if out.Tcw is None else np.asarray(out.Tcw, np.float64),
                      out.n_inliers, out.created_kf))
@@ -1301,7 +1553,7 @@ def mono_path(cfg, frames, dev):
     after = np.asarray(secs[init + 1:]) * 1e3
     return dict(frames=len(frames), frames_run=2 * len(frames), init_frame=init,
                 init_frame_ms=secs[init] * 1e3, before_init_ms=[t * 1e3 for t in secs[:init]],
-                tracked=len(tracked), n_kfs=n_kfs, n_points=system.tracker.n_pts_host,
+                tracked=len(tracked), n_kfs=n_kfs, n_points=system.tracker.n_pts,
                 n_live_points=int(system.tracker.map.pt_valid.sum()),
                 ate_m=ate, after_init_p50_ms=float(np.median(after)),
                 after_init_p99_ms=float(np.percentile(after, 99)),
@@ -1337,7 +1589,7 @@ def track_ok(system, frames, what, secs=None):
     outs = []
     for i, f in enumerate(frames):
         t0 = time.perf_counter()
-        out = system.track_rgbd(f["image"], f["depth"], f["timestamp"])
+        out = resolved(system.track_rgbd(f["image"], f["depth"], f["timestamp"]))
         torch.cuda.synchronize()
         if secs is not None:
             secs.append(time.perf_counter() - t0)
@@ -1570,6 +1822,29 @@ def k4_density(windows, K, BF, what):
                 curve=[[float(a), float(b)] for a, b in curve])
 
 
+def k4_window_errors(windows, K, BF, what):
+    """Print, for every captured local-BA window at its start (lba_init,
+    robust), each K4 field's largest magnitude in the plain version and
+    the largest difference from it. A window linearized where its BA has
+    converged has a near-zero camera gradient bc, so k4_field_err's
+    per-field relative error says little there; the absolute differences
+    show whether the kernel's rounding is that of every other window."""
+    from orb_slam2_comment_tpu_torch.ops import lba_cuda, optim
+
+    rows = []
+    for prep in windows:
+        prob, inv = prep.prob, prep.inv_sigma2_levels
+        cam_T, pts, *_, obs_ok = optim.lba_init(prob, inv, K, BF)
+        sk = lba_cuda.build_system(prep, cam_T, pts, obs_ok, True, K, BF)
+        sp = optim.build_system_plain(prob, inv, prep.F, cam_T, pts, obs_ok, True, K, BF)
+        rows.append({f: (float(getattr(sp, f).double().abs().max()),
+                         float((getattr(sp, f).double() - getattr(sk, f).double()).abs().max()))
+                     for f in ("Hcc", "bc", "Hpp9", "bp3", "E")} | dict(active=int(obs_ok.sum())))
+    print(f"# K4 on every {what} window (active obs, then field: max |plain|, max |diff|): "
+          + json.dumps(rows), flush=True)
+    return rows
+
+
 def grow_config():
     """bench.py's widths (640x480, 1000 x 8) from the smallest tiers the
     BA-window constants and LOCAL_POINTS_CAP allow (16 keyframes, 8192
@@ -1616,7 +1891,7 @@ def run_grow(cfg, frames, dev, calls=None):
             optim.pose_optimize = recording
         try:
             t0 = time.perf_counter()
-            out = system.track_rgbd(f["image"], f["depth"], f["timestamp"])
+            out = resolved(system.track_rgbd(f["image"], f["depth"], f["timestamp"]))
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
         finally:
@@ -2108,6 +2383,20 @@ def run_all(args, dev, kind, smi, desk_seq, desk_proc):
     main_keep, loop_keep = {}, {}
     run("main", lambda: main_path(cfg, frames[:args.frames], dev, args.profile, main_keep),
         K1_K4)
+    pipe_keep = {}
+    run("pipeline", lambda: pipeline_path(cfg, frames[:args.frames], dev, pipe_keep), K1_K4)
+    # K1-K4 at the pipeline's shapes: K1 and K2 on its last frame, K3 on the
+    # last pose_optimize call of its final drain, K4 on every local-BA window
+    _, pstack, _, _, plyx = k2_inputs(cfg, frames[args.frames - 1]["image"], dev,
+                                      "K1 on the pipeline's last frame")
+    if not torch.equal(orb.gather_patches(pstack, plyx), orb.gather_patches_plain(pstack, plyx)):
+        raise AssertionError("K2 on the pipeline's last frame differs from its plain version")
+    _, pdT, pdmask = k3_agrees(pipe_keep["calls"][-1], "K3 on the pipeline's last call")
+    pk4 = check_k4_window(pipe_keep["windows"][-1], cfg.K, cfg.bf, "pipeline")
+    k4_window_errors(pipe_keep["windows"], cfg.K, cfg.bf, "pipeline")
+    print(f"# pipeline shapes: K1 and K2 bit-exact on the last frame, K3 |dT|={pdT:.2e} with "
+          f"{pdmask} inlier flags differing, K4 on the last window within "
+          f"{pk4['max_abs_err']:.2e}", flush=True)
     run("reloc", lambda: reloc_path(cfg, frames, dev), K1_K4 + ("pose_lm_batched",))
     run("loop", lambda: loop_path(cfg, orbit, dev, loop_keep), K1_K4)
     windows = []
@@ -2140,7 +2429,8 @@ def run_all(args, dev, kind, smi, desk_seq, desk_proc):
     k4_window = []
     run("dist", lambda: dist_path(cfg, main_keep, loop_keep, dev, k4_window), ("lba_build",))
     frames_run["vo"] = 10
-    for path, k, per in (("main", "fast_nms", 1), ("stereo", "fast_nms", 2),
+    for path, k, per in (("main", "fast_nms", 1), ("pipeline", "fast_nms", 1),
+                         ("pipeline", "gather_patches", 1), ("stereo", "fast_nms", 2),
                          ("stereo", "gather_patches", 2), ("mono", "fast_nms", 1),
                          ("facade", "fast_nms", 1), ("facade", "gather_patches", 1),
                          ("grow", "fast_nms", 1), ("grow", "gather_patches", 1),

@@ -40,6 +40,7 @@ def run(sensor, dataset, seq_dir, settings=None, vocabulary=None,
     Returns the last run's System."""
     from orb_slam2_comment_tpu_torch.models.frame import depth_to_tensor
     from orb_slam2_comment_tpu_torch.models.system import System
+    from orb_slam2_comment_tpu_torch.models.tracking import OK
     from orb_slam2_comment_tpu_torch.utils import datasets as ds
     from orb_slam2_comment_tpu_torch.utils.config import (
         SlamConfig, load_rectification, load_yaml_settings, resolve_device)
@@ -113,7 +114,6 @@ def run(sensor, dataset, seq_dir, settings=None, vocabulary=None,
             print(f"--- run {run_idx + 1}/{runs} "
                   f"{'(timed)' if run_idx == runs - 1 else '(warm-up)'} ---")
         t_run0 = time.perf_counter()
-        n_ok = 0
         for i, f in enumerate(loader):
             t0 = time.perf_counter()
             if sensor == "rgbd":
@@ -126,7 +126,7 @@ def run(sensor, dataset, seq_dir, settings=None, vocabulary=None,
                 out = system.track_monocular(f["image"], f["timestamp"])
             dt = time.perf_counter() - t0
             times.append(dt)
-            n_ok += out.state == 1
+            # reading an output waits for its frame: only where it prints
             if i % 20 == 0:
                 print(f"frame {i}/{len(items)} state={out.state} "
                       f"inl={out.n_inliers} {dt*1e3:.1f}ms")
@@ -137,6 +137,7 @@ def run(sensor, dataset, seq_dir, settings=None, vocabulary=None,
     run_wall = time.perf_counter() - t_run0
     print(f"run wall incl. drain: {run_wall:.2f} s "
           f"({len(times)/max(run_wall, 1e-9):.1f} fps)")
+    n_ok = sum(1 for r in system.trajectory if r[3] == OK)
     print(f"tracked frames: {n_ok}/{len(times)}")
     system.save_trajectory_tum(f"{out_prefix}_tum.txt")
     system.save_trajectory_kitti(f"{out_prefix}_kitti.txt")

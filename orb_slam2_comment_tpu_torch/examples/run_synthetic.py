@@ -66,7 +66,7 @@ def main(argv=None):
         state = {1: "OK", 2: "LOST", 0: "INIT", -1: "START"}.get(out.state, "?")
         print(
             f"frame {i:3d}: {state:5s} inliers={out.n_inliers:4d} "
-            f"kf={'*' if out.created_kf else ' '} map_pts={tracker.n_pts_host:5d} "
+            f"kf={'*' if out.created_kf else ' '} map_pts={tracker.n_pts:5d} "
             f"kfs={tracker.n_kfs:3d} {dt*1e3:7.1f} ms"
         )
         if out.Tcw is not None:

@@ -75,15 +75,22 @@ def depth_to_tensor(depth_map, device) -> torch.Tensor:
 
 
 def rgbd_features(image: torch.Tensor, depth_map: torch.Tensor, cfg: SlamConfig):
-    """Extraction + depth per keypoint + undistortion (the front half of
-    tracking._frame_step_rgbd). Returns (feats, uright, depth, pyramid)."""
+    """Extraction + depth per keypoint + undistortion (a host-path RGB-D
+    frame; the pipeline splits it into stage A and rgbd_depth). Returns
+    (feats, uright, depth, pyramid)."""
     feats, pyr, _ = orb._extract_impl(image, cfg.orb, (cfg.height, cfg.width))
+    return rgbd_depth(feats, depth_map, cfg) + (pyr,)
+
+
+def rgbd_depth(feats: orb.FrameFeatures, depth_map: torch.Tensor, cfg: SlamConfig):
+    """Depth per keypoint from the full depth map (nearest pixel), right u
+    and undistortion: what follows extraction in an RGB-D frame (the
+    pipeline's stage B starts here). Returns (feats, uright, depth)."""
     d = stereo.sample_depth_at(depth_map, feats.xy).to(torch.float32)
     if cfg.depth_map_factor != 1.0:
         d = d / cfg.depth_map_factor
     uright, depth = stereo.depth_to_uright(feats.xy, d, cfg.bf)
-    feats = feats.replace(xy=undistort_points(feats.xy, cfg))
-    return feats, uright, depth, pyr
+    return feats.replace(xy=undistort_points(feats.xy, cfg)), uright, depth
 
 
 def stereo_features(image_l: torch.Tensor, image_r: torch.Tensor, cfg: SlamConfig):
@@ -101,10 +108,11 @@ def stereo_features(image_l: torch.Tensor, image_r: torch.Tensor, cfg: SlamConfi
     return feats_l, uright, depth, pyr_l
 
 
-def mono_features(image: torch.Tensor, cfg: SlamConfig):
-    """Extraction and undistortion; no feature has a right u or a depth.
-    Returns (feats, uright, depth, pyramid)."""
-    feats, pyr, _ = orb._extract_impl(image, cfg.orb, (cfg.height, cfg.width))
+def mono_features(image: torch.Tensor, cfg: SlamConfig, ocfg: Optional[orb.ORBConfig] = None):
+    """Extraction (with `ocfg`, cfg.orb by default) and undistortion; no
+    feature has a right u or a depth. Returns (feats, uright, depth,
+    pyramid)."""
+    feats, pyr, _ = orb._extract_impl(image, ocfg or cfg.orb, (cfg.height, cfg.width))
     none = torch.full(feats.valid.shape, -1.0, dtype=torch.float32, device=image.device)
     return feats.replace(xy=undistort_points(feats.xy, cfg)), none, none.clone(), pyr
 
@@ -117,8 +125,14 @@ def build_frame_stereo(frame_id: int, timestamp: float, image_left, image_right,
 
 
 def build_frame_mono(frame_id: int, timestamp: float, image, cfg: SlamConfig,
-                     device="cpu") -> Frame:
-    feats, uright, depth, pyr = mono_features(image_to_tensor(image, device), cfg)
+                     device="cpu", double_features: bool = False) -> Frame:
+    """Monocular frame; `double_features` extracts twice cfg's budget, as
+    the reference's initializer extractor does (Tracking.cc:243-247,
+    mpIniORBextractor)."""
+    ocfg = cfg.orb
+    if double_features:
+        ocfg = ocfg._replace(n_features=2 * ocfg.n_features)
+    feats, uright, depth, pyr = mono_features(image_to_tensor(image, device), cfg, ocfg)
     return Frame(frame_id, timestamp, feats, uright, depth, pyramid=pyr)
 
 

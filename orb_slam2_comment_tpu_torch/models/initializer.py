@@ -169,7 +169,7 @@ class MonocularInitializer:
 
         tracker.map = m
         tracker.n_kfs = 2
-        tracker.n_pts_host = n_new
+        tracker.n_pts = n_new
         tracker.ref_kf = 1
         tracker.last_kf_frame_id = frame.frame_id
         frame.Tcw = m.kf_pose[1]

@@ -74,6 +74,10 @@ class KeyFrameDatabase:
         """Transform a keyframe's descriptors and index it
         (KeyFrameDatabase::add)."""
         words, groups, vec = bow.transform(self.voc, desc, feat_valid)
+        if not 0 <= kf_id < self.valid.shape[0]:
+            # a slot past this database's tier: dropped, as the reference's
+            # out-of-bounds scatter drops it (a map loaded from a larger tier)
+            return vec
         if self.sparse:
             uw, ww = bow.sparse_bow(self.voc.word_weight, words)
             self.sp_word[kf_id] = uw
@@ -85,6 +89,11 @@ class KeyFrameDatabase:
         self.words[kf_id] = words
         self.valid[kf_id] = True
         return vec
+
+    def erase(self, kf_id: int):
+        """Drop a keyframe from the index (KeyFrameDatabase::erase)."""
+        self.valid[kf_id] = False
+        self._postings = None
 
     def grow(self, new_max_kfs: int):
         """Widen to a larger keyframe tier (see map_state.grow_map), the new

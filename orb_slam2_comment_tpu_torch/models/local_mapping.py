@@ -814,7 +814,7 @@ def _mapper_kernel(m: MapState, kf_id: int, pt_base: torch.Tensor, cfg: SlamConf
 class LocalMapper:
     """The monolithic mapper as a keyframe callback: `process(kf_id)` runs
     `_mapper_kernel` on the tracker's map and writes the map and the
-    point-slot cursor `n_pts_host` back; the tracker rebuilds its device
+    point-slot cursor `n_pts_dev` back; the tracker rebuilds its device
     state, where it has one, after the keyframe callbacks."""
 
     cfg: SlamConfig
@@ -822,9 +822,7 @@ class LocalMapper:
 
     def process(self, kf_id: int):
         trk = self.tracker
-        base = torch.full((), trk.n_pts_host, dtype=torch.int32, device=trk.device)
-        trk.map, base = _mapper_kernel(trk.map, kf_id, base, self.cfg)
-        trk.n_pts_host = int(base)
+        trk.map, trk.n_pts_dev = _mapper_kernel(trk.map, kf_id, trk.n_pts_dev, self.cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -11,12 +11,14 @@ thread, src/LoopClosing.cc) as a per-keyframe pass plus a per-frame pump.
               graph, then start the chunked background global BA.
 
 Detection is queued: a keyframe's covisibility matrix and BoW scores are
-packed on the device when it arrives and harvested on the first pump at
-least 4 pumps later (or at once when forced), the reference's
-deterministic rule. The reference's transfer plumbing (side channel, pull
-futures, readiness polls) and its failure dump are left out: this tracker
-is synchronous. The keyframe stays unerasable (SetNotErase) until its
-detection is harvested.
+packed on the device when its frame resolves, and the pack comes to the
+host without stalling a frame: with fused tracking it rides the tracker's
+next stats transfer (`Tracker.enqueue_side`), otherwise it is one
+non-blocking copy into pinned memory with an event after it. A pack is
+harvested on a pump at least 4 pumps after it was queued and once its
+transfer has landed (at once, waiting, when forced). The keyframe stays
+unerasable (SetNotErase) until its detection is harvested. The reference's
+failure dump is left out.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from orb_slam2_comment_tpu_torch.models.keyframe_database import scores_dense
 from orb_slam2_comment_tpu_torch.models.local_mapping import (
     _kf_feats, fuse_point_set_into_keyframe)
 from orb_slam2_comment_tpu_torch.models.map_state import MapState
+from orb_slam2_comment_tpu_torch.models.tracking import _Pull
 from orb_slam2_comment_tpu_torch.ops import geometry as geo
 from orb_slam2_comment_tpu_torch.ops import matching, optim, ransac
 from orb_slam2_comment_tpu_torch.ops.scatter import const, scatter_set, top_k
@@ -351,7 +354,8 @@ class LoopCloser:
     # chunked background GBA: one LM iteration per frame via
     # pump_background(); aborted by a new correction, a compaction or reset
     _bg: object = None   # [prob, inv_s2, carry, it, snap_kf, snap_pt, epoch, plans]
-    # queued detections: (kf_id, packed device buffer, pump count at queueing)
+    # queued detections: (kf_id, packed device buffer, its transfer (done() /
+    # result()), pump count at queueing)
     _detect_q: object = field(default_factory=collections.deque)
     _pump_count: int = 0
 
@@ -397,22 +401,30 @@ class LoopCloser:
             sc, cm = self.db.scores_device(kf_id=kf_id)
         else:
             sc, cm = scores_dense(self.db.bow, self.db.valid, self.db.bow[kf_id])
-        self._detect_q.append((kf_id, _detect_pack(self.tracker.map, sc, cm), self._pump_count))
+        packed = _detect_pack(self.tracker.map, sc, cm)
+        if self.tracker.cfg.fused_tracking:
+            # rides the next stats transfer (one transfer for both)
+            fut = self.tracker.enqueue_side(packed.reshape(-1), packed.shape)
+        else:
+            # the staged mode ships no stats: a transfer of its own
+            fut = _Pull(packed)
+        self._detect_q.append((kf_id, packed, fut, self._pump_count))
         return self._drain_detect(force=False)
 
     def _drain_detect(self, force: bool) -> bool:
-        """Harvest queued detections 4 pumps after queueing (all when
-        forced). Returns True if a loop closed."""
+        """Harvest queued detections at least 4 pumps after queueing whose
+        transfers have landed (all, waiting, when forced). Returns True if
+        a loop closed."""
         closed = False
         while self._detect_q:
-            kf_id, packed, born = self._detect_q[0]
-            if not force and self._pump_count - born < 4:
+            kf_id, packed, fut, born = self._detect_q[0]
+            if not force and (self._pump_count - born < 4 or not fut.done()):
                 break
             self._detect_q.popleft()
             self.n_detections += 1
             # harvested -> the KF becomes erasable again (KeyFrame::SetErase)
             self.tracker.set_kf_erasable(kf_id)
-            P = packed.cpu().numpy()
+            P = fut.result()
             kmax = P.shape[0]
             closed |= self._finish_detect(kf_id, P[:, :kmax].astype(np.int32), P[:, kmax],
                                           P[:, kmax + 1].astype(np.int32),
@@ -442,7 +454,7 @@ class LoopCloser:
         self.last_loop_kf = kf_id
         self.n_loops_closed += 1
         # queued snapshots predate the correction: drop them, releasing holds
-        for q_kf, _, _ in self._detect_q:
+        for q_kf, *_ in self._detect_q:
             self.tracker.set_kf_erasable(q_kf)
         self._detect_q.clear()
         return True
@@ -640,7 +652,7 @@ class LoopCloser:
 
     def abort_background(self):
         self._bg = None
-        for q_kf, _, _ in self._detect_q:
+        for q_kf, *_ in self._detect_q:
             self.tracker.set_kf_erasable(q_kf)
         self._detect_q.clear()
 
@@ -648,7 +660,7 @@ class LoopCloser:
         prob, inv_s2, carry, _, snap_kf, snap_pt, snap_epoch, _ = self._bg
         self._bg = None
         trk = self.tracker
-        trk._drain_mapper()
+        trk._flush_all()
         if trk.compaction_epoch != snap_epoch:
             # the point arena was renumbered under the snapshot: discard
             print("[loop] background GBA discarded: point arena compacted mid-flight",
@@ -656,6 +668,7 @@ class LoopCloser:
             return
         cfg = self.cfg
         res = optim.gba_result(prob, inv_s2, cfg.K, cfg.bf, carry)
+        trk._flush_all()
         m = trk.map
         # the map may have grown to a larger tier while the chunks ran:
         # growth keeps every id, so the snapshot-shaped result is padded

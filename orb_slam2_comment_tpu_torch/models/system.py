@@ -10,6 +10,12 @@ True) — the loop closer with its chunked background global BA.
 image_right, timestamp)` and `track_monocular(image, timestamp)`, each for
 its `cfg.sensor`, auto-reset a map lost with at most 5 keyframes (not in
 localization mode), track the frame and pump one background-GBA chunk.
+A fused frame returns a `tracking.LazyTrackOutput` at once: reading one
+of its fields waits for that frame, and the tracking state, `trajectory`
+and the keyframe callbacks move when the tracker's batched stats resolve,
+up to a few batches behind. `shutdown`, the savers, `save_map`, the
+state queries but `get_tracking_state`, and `reset` resolve everything
+first.
 
 Besides: the localization-mode switches, the state queries, the TUM and
 KITTI trajectory savers, and map save/load in the reference's npz format
@@ -231,7 +237,8 @@ class System:
 
     @property
     def trajectory(self):
-        """Per-frame (timestamp, Tcr, ref_kf, state) records."""
+        """Per-frame (timestamp, Tcr, ref_kf, state) records of the frames
+        resolved so far (`shutdown` resolves the rest)."""
         return self.tracker.trajectory
 
     # -- mode switches (System.cc:268-299) -------------------------------------
@@ -247,32 +254,32 @@ class System:
 
     def reset(self):
         """Full reset (System::Reset + Tracking::Reset): a new map,
-        database and tracking state; the frame counter carries on."""
+        database and tracking state; the frame counter carries on. The
+        pipeline is resolved first, into the old tracker."""
         self.n_resets += 1
-        self._rebuild()
-
-    def _rebuild(self):
         if self.loop_closer is not None:
             self._loops_closed_prev += self.loop_closer.n_loops_closed
             self.loop_closer.abort_background()
+        self.tracker._flush_all()
         self._build()
 
     def shutdown(self):
-        """Run the local mapper to idle and finish any queued loop
-        detection and background GBA (System::Shutdown)."""
-        self.tracker._drain_mapper()
+        """Resolve the pipeline, run the local mapper to idle and finish any
+        queued loop detection and background GBA (System::Shutdown)."""
+        self.tracker._flush_all()
         if self.loop_closer is not None:
             self.loop_closer.finish_background()
-        self.tracker._drain_mapper()
+        self.tracker._flush_all()
 
     # -- state queries (System.cc:282-299, 474-491) ----------------------------
     def get_tracking_state(self):
+        """The state of the last resolved frame (lagged, as the reference's)."""
         return self.tracker.state
 
     def get_tracked_map_points(self):
         """Map point ids associated with the last tracked frame."""
         t = self.tracker
-        t._drain_mapper()
+        t._flush_all()
         if t.ds is not None:
             a = t.ds.last_assoc.cpu().numpy()
         elif t.last_frame is not None and t.last_frame.assoc is not None:
@@ -286,7 +293,7 @@ class System:
         map-point association (System::GetTrackedKeyPointsUn,
         src/System.cc:484-491)."""
         t = self.tracker
-        t._drain_mapper()
+        t._flush_all()
         if t.last_frame is None:
             return np.empty((0, 2), np.float32)
         a = t.last_frame.assoc.cpu().numpy()
@@ -306,9 +313,9 @@ class System:
 
     # -- trajectory savers (System.cc:322-472) ---------------------------------
     def _settle(self):
-        """The mapper idle and any background GBA applied, as the savers
-        and save_map need the map."""
-        self.tracker._drain_mapper()
+        """The pipeline resolved, the mapper idle and any background GBA
+        applied, as the savers and save_map need the map."""
+        self.tracker._flush_all()
         if self.loop_closer is not None:
             self.loop_closer.finish_background()
 
@@ -363,39 +370,40 @@ class System:
             extra["loop_edge_ids"] = np.asarray([(a, b) for a, b, _ in le], np.int32)
             extra["loop_edge_S"] = np.stack([S for _, _, S in le])
         np.savez_compressed(path, **ms.to_numpy(self.tracker.map),
-                            n_kfs=self.tracker.n_kfs, n_pts=self.tracker.n_pts_host, **extra)
+                            n_kfs=self.tracker.n_kfs, n_pts=self.tracker.n_pts, **extra)
 
     def load_map(self, path):
-        """Adopt a saved map: fields missing from the file come from an
-        empty map, the database is re-indexed for every keyframe slot below
-        n_kfs, and the tracker starts LOST (relocalizes on the next frame).
+        """Adopt a saved map, as the reference does: its arrays (fields
+        missing from the file from an empty map at this System's tier),
+        keyframe count and point cursor; the database re-indexes every
+        keyframe slot below n_kfs and the tracker starts LOST (relocalizes
+        on the next frame).
 
-        Whatever this System tracked before is dropped first, as by a reset
-        that n_resets does not count: the tracker (trajectory, velocity,
-        pending device state), the database, queued loop detections and any
-        global BA in flight."""
+        Everything else stays: this System's cfg and database tier (a file
+        from a larger tier keeps its rows, the database drops those at or
+        above its own, and capacity growth catches up on a later frame),
+        database entries above the loaded n_kfs, a background GBA in flight,
+        queued detections, the pipeline, the device state, velocity,
+        `last_frame` and trajectory."""
         z = np.load(path)
-        self._rebuild()
         t = self.tracker
-        # a map saved at a larger tier: this System grows to it first, as
-        # capacity growth would have (the reference keeps its smaller cfg)
-        kmax, pmax = z["kf_pose"].shape[0], z["pt_pos"].shape[0]
-        if kmax > self.cfg.max_keyframes or pmax > self.cfg.max_points:
-            t._grow_to(max(kmax, self.cfg.max_keyframes), max(pmax, self.cfg.max_points))
         empty = ms.empty_map(self.cfg.max_keyframes, self.cfg.max_points, t._n_slots(),
                              self.device)
         t.map = ms.MapState(**{
             f: ms.tensor_from_numpy(z[f], self.device) if f in z else getattr(empty, f)
             for f in ms.MapState.field_names()})
         t.n_kfs = int(z["n_kfs"])
-        t.n_pts_host = int(z["n_pts"])
+        t.n_pts = int(z["n_pts"])
         if self.loop_closer is not None and "loop_edge_ids" in z:
             self.loop_closer.loop_edges = [
                 (int(a), int(b), S) for (a, b), S in zip(z["loop_edge_ids"], z["loop_edge_S"])]
         if self.db is not None:
             m = t.map
+            rows = self.db.groups.shape[0]
             for k in range(t.n_kfs):
                 self.db.add(k, m.kf_desc[k], m.kf_feat_valid[k])
-                t.set_kf_groups(k, self.db.groups[k])
+                # a row past the database's tier reads its last row, as the
+                # reference's clamped gather does
+                t.set_kf_groups(k, self.db.groups[min(k, rows - 1)])
         t.state = LOST if t.n_kfs else NO_IMAGES_YET
         t.ref_kf = max(t.n_kfs - 1, -1)

@@ -176,3 +176,41 @@ def test_database_candidates_match_jax(vocs, sparse, monkeypatch):
                                                     "words", "valid")
              if getattr(jd, f, None) is not None}, device="cpu")
     assert td2.detect_loop_candidates(tm, 11, 0.0) == jd.detect_loop_candidates(jm, 11, 0.0)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_database_erase_matches_jax(vocs, sparse, monkeypatch):
+    """KeyFrameDatabase.erase (KeyFrameDatabase::erase) in both layouts:
+    the erased keyframes leave the index (the inverted file is rebuilt)
+    and the loop candidates of the revisiting keyframe equal JAX's; an add
+    at a slot past the database's tier is dropped in both packages."""
+    from orb_slam2_comment_tpu.models import keyframe_database as jdb
+    from orb_slam2_comment_tpu_torch.models import keyframe_database as tdb
+    from orb_slam2_comment_tpu_torch.models import map_state as tms
+
+    if sparse:
+        monkeypatch.setattr(jdb, "SPARSE_W_THRESHOLD", 1000)
+        monkeypatch.setattr(tdb, "SPARSE_W_THRESHOLD", 1000)
+    jv, tv = vocs
+    jm, _, _, _ = _db_map(np.random.default_rng(5))
+    tm = tms.from_numpy({k: np.asarray(v) for k, v in jm._asdict().items()})
+    jd = jdb.KeyFrameDatabase(jv, 16, 256)
+    td = tdb.KeyFrameDatabase(tv, 16, 256, device="cpu")
+    for k in range(12):
+        jd.add(k, jm.kf_desc[k], jm.kf_feat_valid[k])
+        td.add(k, tm.kf_desc[k], tm.kf_feat_valid[k])
+    before = td.detect_loop_candidates(tm, 11, 0.0)
+    if sparse:
+        td.postings()
+    for k in (0, 1):
+        jd.erase(k)
+        td.erase(k)
+    assert td._postings is None
+    np.testing.assert_array_equal(td.valid.numpy(), np.asarray(jd.valid))
+    assert not td.valid[:2].any() and td.valid[2:12].all()
+    tc, jc = td.detect_loop_candidates(tm, 11, 0.0), jd.detect_loop_candidates(jm, 11, 0.0)
+    assert tc == jc and not {0, 1} & set(tc) and tc != before
+    jd.add(16, jm.kf_desc[2], jm.kf_feat_valid[2])
+    td.add(16, tm.kf_desc[2], tm.kf_feat_valid[2])
+    for f in ("groups", "words", "valid"):
+        np.testing.assert_array_equal(getattr(td, f).numpy(), np.asarray(getattr(jd, f)))

@@ -3,8 +3,8 @@ KeyFrameDatabase.grow, the host point compaction and the top-tier branch
 of Tracker._maybe_grow, then one orbit at narrow width (600 x 4) in both
 packages from the smallest tiers (16 keyframes, 8192 points; caps 64 and
 32768) with a background global BA in flight across the growth, the
-grown map saved and loaded into a System at the starting tier, and the
-default configuration constructed."""
+grown map saved and JAX's loaded into a System of each package at the
+starting tier, and the default configuration constructed."""
 
 import numpy as np
 import pytest
@@ -219,7 +219,7 @@ def orbit(tmp_path_factory):
         recs, events, started = _drive(system, frames[:N_ORBIT])
         system.save_map(str(d / f"{name}.npz"))
         loaded = make()
-        loaded.load_map(str(d / f"{name}.npz"))
+        loaded.load_map(str(d / "jax.npz"))   # the same file in both packages
         after_load = dict(cfg=(loaded.cfg.max_keyframes, loaded.cfg.max_points),
                           map=tuple(loaded.tracker.map.kf_pose.shape[:1])
                           + tuple(loaded.tracker.map.pt_pos.shape[:1]),
@@ -228,11 +228,15 @@ def orbit(tmp_path_factory):
                           n_kfs=loaded.tracker.n_kfs)
         states = []
         for f in frames[N_ORBIT:]:
-            states.append(loaded.track_rgbd(f["image"], f["depth"],
-                                            f["timestamp"] + 10.0).state)
+            state = loaded.track_rgbd(f["image"], f["depth"], f["timestamp"] + 10.0).state
+            db_valid = np.asarray(loaded.db.valid)
+            states.append((state, loaded.tracker.n_kfs, loaded.cfg.max_keyframes,
+                           loaded.tracker.cfg.max_keyframes, db_valid.shape[0],
+                           np.flatnonzero(db_valid).tolist()))
         loaded.shutdown()
         out[name] = dict(system=system, recs=recs, events=events, started=started,
                          after_load=after_load, states_after_load=states, loaded=loaded)
+    out["jax_file"] = dict(np.load(d / "jax.npz"))
     return frames, out
 
 
@@ -284,22 +288,24 @@ def test_gba_in_flight_across_growth_like_jax(orbit):
         assert np.abs(a[2][:3, 3] - b[2][:3, 3]).max() < 1e-3
 
 
-def test_grown_map_loads_into_a_system_at_the_starting_tier(orbit):
-    """A map saved at the 64-keyframe tier, loaded by a System built at 16:
-    the port grows to the file's tier first (System, tracker, database all
-    at 64, every keyframe indexed) and relocalizes on the next frame. JAX
-    keeps its 16-keyframe cfg and database beside the 64-row map, drops
-    the database rows of keyframes 16 and up, and stays LOST; ROADMAP
-    lists this departure."""
+def test_grown_map_loads_into_a_system_at_the_starting_tier(orbit, tmp_path):
+    """JAX's map saved at the 64-keyframe tier (the port's own file has the
+    same tier and cursors), loaded by a System of each package built at 16:
+    both adopt the 64-row map beside their 16-keyframe cfg and database,
+    index keyframes 0-15 only (the database drops the rows at or above its
+    tier) and then agree frame by frame on the state, n_kfs, the tiers of
+    the System and the tracker and the database's rows."""
     _, out = orbit
     j, t = out["jax"], out["torch"]
-    n = t["after_load"]["n_kfs"]
-    assert n == j["after_load"]["n_kfs"] > 16
-    assert t["after_load"] == dict(cfg=(64, 8192), map=(64, 8192), db=64, db_indexed=n, n_kfs=n)
-    assert all(s == 1 for s in t["states_after_load"])
-    assert j["after_load"]["cfg"] == (16, 8192) and j["after_load"]["db"] == 16
-    assert j["after_load"]["db_indexed"] == 16
-    assert all(s == 2 for s in j["states_after_load"])
+    n = j["after_load"]["n_kfs"]
+    assert n > 16
+    assert t["after_load"] == j["after_load"] == dict(cfg=(16, 8192), map=(64, 8192), db=16,
+                                                       db_indexed=16, n_kfs=n)
+    assert t["states_after_load"] == j["states_after_load"]
+    assert len(t["states_after_load"]) == N_AFTER_LOAD
+    t["system"].save_map(str(tmp_path / "port.npz"))
+    zt, zj = np.load(tmp_path / "port.npz"), out["jax_file"]
+    assert (zt["kf_pose"].shape, int(zt["n_kfs"])) == (zj["kf_pose"].shape, int(zj["n_kfs"]))
 
 
 def test_host_compaction_remaps_like_jax(orbit):

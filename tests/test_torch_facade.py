@@ -128,19 +128,19 @@ def orbit(tmp_path_factory):
         _drive(system, frames[:12])
         files[name] = str(d / f"{name}.npz")
         system.save_map(files[name])
-        counts[name] = (system.tracker.n_kfs, int(system.tracker.n_pts
-                                                  if name == "jax" else system.tracker.n_pts_host))
+        counts[name] = (system.tracker.n_kfs, int(system.tracker.n_pts))
     jl, tl = _systems()
     jl.load_map(files["jax"])
     tl.load_map(files["jax"])
     loaded = dict(jax=(_map_arrays(jl), jl.tracker.n_kfs, jl.tracker.n_pts,
                        np.asarray(jl.db.valid)),
-                  port=(_map_arrays(tl), tl.tracker.n_kfs, tl.tracker.n_pts_host,
+                  port=(_map_arrays(tl), tl.tracker.n_kfs, tl.tracker.n_pts,
                         tl.db.valid.numpy().copy()))
     after = dict(jax=_drive(jl, frames[10:]), port=_drive(tl, frames[10:]))
     jp, _ = _systems()
     jp.load_map(files["port"])
     return dict(files=files, counts=counts, loaded=loaded, after=after, port_loaded=tl,
+                jax_loaded=jl,
                 jax_from_port=(_map_arrays(jp), jp.tracker.n_kfs, jp.tracker.n_pts),
                 # the map's world is camera 0's frame
                 gt=[f["Tcw_gt"] @ np.linalg.inv(frames[0]["Tcw_gt"]) for f in frames[10:]])
@@ -361,41 +361,58 @@ def test_map_save_load_across_packages(orbit):
     assert max(np.abs(r[3][:3, 3] - g[:3, 3]).max() for r, g in zip(t, orbit["gt"])) < 0.02
 
 
-def test_load_map_drops_what_was_tracked(jitter, orbit):
+def test_load_map_keeps_what_was_tracked_like_jax(jitter, orbit):
     """load_map into a System that has tracked more keyframes than the file
-    holds leaves nothing of them: the same map, database, tracking and
-    loop-closing state as a new System that loads the file, then the same
-    frames (the jitter map relocalized over the localization frames)."""
-    from orb_slam2_comment_tpu_torch.models.system import System
+    holds, in both packages (each System loaded the JAX orbit map and
+    tracked 4 frames): the map, keyframe count and point cursor come from
+    the file and the tracker starts LOST, and both keep the rest alike:
+    database rows above the file's keyframes, the trajectory, the device
+    state, velocity, `last_frame`, the cursor mirror, the loop closer's
+    state and n_resets. Then the same frames give the same states and
+    keyframes in both, translations within 1e-3 m."""
     from orb_slam2_comment_tpu_torch.models.tracking import LOST
-    from orb_slam2_comment_tpu_torch.utils.config import SlamConfig
 
-    path = jitter["port"]["map"]
-    used = orbit["port_loaded"]   # the JAX orbit map, loaded and tracked over 4 frames
-    n_kfs_file = int(np.load(path)["n_kfs"])
-    assert used.tracker.n_kfs > n_kfs_file and len(used.trajectory) > 0
-    n_resets = used.n_resets
-    used.load_map(path)
-    new = System(SlamConfig(**_cfg_kw()), device="cpu")
-    new.load_map(path)
-    assert used.n_resets == n_resets
-    for s in (used, new):
-        t = s.tracker
-        assert (t.state, t.n_kfs, t.ref_kf, t.trajectory) == (LOST, n_kfs_file, n_kfs_file - 1, [])
-        assert t.ds is None and t.velocity is None and t.last_frame is None
-        assert s.loop_closer._bg is None and not s.loop_closer._detect_q
-        assert s.loop_closer.loop_edges == []
-    assert used.tracker.n_pts_host == new.tracker.n_pts_host
-    a, b = _map_arrays(used), _map_arrays(new)
-    for f in a:
-        np.testing.assert_array_equal(a[f], b[f], f)
-    np.testing.assert_array_equal(used.db.valid.numpy(), new.db.valid.numpy())
-    assert not used.db.valid.numpy()[n_kfs_file:].any()
-    np.testing.assert_array_equal(used.db.groups.numpy(), new.db.groups.numpy())
-    ru, rn = _drive(used, jitter["loc_frames"]), _drive(new, jitter["loc_frames"])
-    assert [(r[0], r[2]) for r in ru] == [(r[0], r[2]) for r in rn]
-    assert all(r[0] == 1 for r in ru)
-    assert _max_dt(ru, rn) <= 1e-6
+    path = jitter["jax"]["map"]
+    z = np.load(path)
+    n_kfs_file = int(z["n_kfs"])
+    kept = {}
+    for name in ("jax", "port"):
+        s = orbit[f"{name}_loaded"]
+        t, lc = s.tracker, s.loop_closer
+        assert t.n_kfs > n_kfs_file and len(t.trajectory) > 0 and t.ds is not None
+        before = (s.n_resets, len(t.trajectory), id(t.ds), id(t.last_frame), t.n_pts_host,
+                  np.asarray(s.db.valid).copy(), lc._bg is not None, len(lc._detect_q),
+                  len(lc.loop_edges))
+        velocity = None if t.velocity is None else np.asarray(t.velocity).copy()
+        s.load_map(path)
+        assert (t.state, t.n_kfs, t.ref_kf, int(t.n_pts)) == (
+            LOST, n_kfs_file, n_kfs_file - 1, int(z["n_pts"]))
+        after = (s.n_resets, len(t.trajectory), id(t.ds), id(t.last_frame), t.n_pts_host,
+                 np.asarray(s.db.valid).copy(), lc._bg is not None, len(lc._detect_q),
+                 len(lc.loop_edges))
+        assert after[:5] == before[:5] and after[6:] == before[6:]
+        assert after[5][:n_kfs_file].all()
+        np.testing.assert_array_equal(after[5][n_kfs_file:], before[5][n_kfs_file:])
+        assert after[5][n_kfs_file:].any()   # stale rows kept
+        assert (t.velocity is None) == (velocity is None)
+        if velocity is not None:
+            np.testing.assert_array_equal(np.asarray(t.velocity), velocity)
+        kept[name] = (after[1], after[4], after[5], after[6:], velocity,
+                      _map_arrays(s))
+    (jt, jh, jv, jl, jvel, jm), (tt, th, tv, tl, tvel, tm) = kept["jax"], kept["port"]
+    assert (tt, th, tl) == (jt, jh, jl)   # trajectory rows, mirror, loop closer
+    np.testing.assert_array_equal(tv, jv)
+    assert (tvel is None) == (jvel is None)
+    if tvel is not None:
+        np.testing.assert_allclose(tvel, jvel, atol=1e-3)
+    for f in jm:
+        np.testing.assert_array_equal(tm[f], jm[f], f)
+        np.testing.assert_array_equal(tm[f], z[f], f)
+    rj = _drive(orbit["jax_loaded"], jitter["loc_frames"])
+    rt = _drive(orbit["port_loaded"], jitter["loc_frames"])
+    assert [(r[0], r[2]) for r in rt] == [(r[0], r[2]) for r in rj]
+    assert any(r[0] == 1 for r in rt)
+    assert _max_dt(rt, rj) <= 1e-3
 
 
 def test_global_ba_kernel_like_jax(orbit):

@@ -226,11 +226,10 @@ def test_mono_system_tracks_like_jax(mono_runs):
     frames, translations within 1e-3 map units, Umeyama ATE within 1 mm of
     JAX's and under 5 cm (on the CPU JAX initializes at frame 2, makes 4
     keyframes and tracks 12 of 14 frames at 7.2 mm), and after shutdown
-    the same point-slot cursor and the same number of live points. The
-    port's `n_pts_host` is its cursor after the mapper's pumps, JAX's
-    `n_pts`; JAX's own `n_pts_host` mirrors the cursor of the last
-    frame's stats and misses the points the mapper triangulates at
-    shutdown."""
+    the same point-slot cursor (`n_pts`, after the mapper's pumps), the
+    same cursor mirror `n_pts_host` (the cursor of the last resolved
+    frame's stats: it misses the points the mapper triangulates at
+    shutdown) and the same number of live points."""
     from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
 
     frames, runs = mono_runs
@@ -246,7 +245,8 @@ def test_mono_system_tracks_like_jax(mono_runs):
     assert max(np.abs(a[:3, 3] - b[:3, 3]).max() for a, b in zip(test, jest)) <= 1e-3
     assert tate <= jate + 1e-3 and tate < 0.05, (tate, jate)
     (js, _), (ts, _) = runs
-    assert ts.tracker.n_pts_host == js.tracker.n_pts > 0
+    assert ts.tracker.n_pts == js.tracker.n_pts > 0
+    assert ts.tracker.n_pts_host == js.tracker.n_pts_host
     assert (int(ts.tracker.map.pt_valid.sum())
             == int(np.asarray(js.tracker.map.pt_valid).sum()) > 0)
 
@@ -292,7 +292,7 @@ def _bench_width_points():
         system.shutdown()
         tr = system.tracker
         print(name, dict(n_kfs=tr.n_kfs, tracked=sum(o.Tcw is not None for o in recs),
-                         cursor=int(tr.n_pts) if name == "jax" else tr.n_pts_host,
+                         cursor=int(tr.n_pts),
                          n_pts_host=tr.n_pts_host,
                          live=int(np.asarray(tr.map.pt_valid).sum())), flush=True)
 

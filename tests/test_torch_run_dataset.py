@@ -70,6 +70,31 @@ def test_run_dataset_warm_runs_prestaged(datasets, tmp_path, monkeypatch):
     assert len(times) == 8 and all(t > 0 for t in times)
 
 
+def test_run_dataset_counts_tracked_frames_from_the_trajectory(datasets, tmp_path,
+                                                               monkeypatch, capsys):
+    """The driver reads a frame's output only where it prints (every 20th
+    frame; the first is the initializing host-path frame) and counts the
+    tracked frames from the trajectory after shutdown, as the JAX driver
+    leaves the pipeline unread: no lazy output is read on the 8-frame TUM
+    fixture, and the count is 8 of 8, the trajectory's OK rows."""
+    from orb_slam2_comment_tpu_torch.examples import run_dataset as trd
+    from orb_slam2_comment_tpu_torch.models import tracking
+
+    reads = []
+    get = tracking.LazyTrackOutput._get
+    monkeypatch.setattr(tracking.LazyTrackOutput, "_get",
+                        lambda self: reads.append(self._fid) or get(self))
+    root = datasets["tum"]
+    monkeypatch.chdir(tmp_path)
+    system = trd.run("rgbd", "tum_rgbd", str(root), settings=str(root / "settings.yaml"),
+                     associations=str(root / "associations.txt"), out_prefix="count",
+                     device="cpu")
+    assert reads == []
+    n_ok = sum(1 for r in system.trajectory if r[3] == tracking.OK)
+    assert n_ok == 8
+    assert "tracked frames: 8/8" in capsys.readouterr().out
+
+
 def test_drivers_need_cuda_unless_told_cpu(datasets, tmp_path, monkeypatch):
     """The drivers default to the card and raise without one, before
     reading a frame; the argv shims take --device."""

@@ -105,21 +105,24 @@ def test_system_tracks_like_jax(rgbd_runs):
 
 
 def test_point_cursor_like_jax(rgbd_runs):
-    """The same point-slot cursor and live points after shutdown, and the
-    monolithic mapper ran once per keyframe in both packages: the staged
-    mode keeps no device state; the fused step with the monolithic mapper
-    keeps the cursor in its device state too."""
+    """The same point-slot cursor, cursor mirror and live points after
+    shutdown, and the monolithic mapper ran once per keyframe in both
+    packages: the staged mode keeps no device state (and its mirror stays
+    0); the fused step with the monolithic mapper keeps the cursor in its
+    device state too."""
     mode, _, _, (js, _), (ts, _), passes = rgbd_runs
     assert len(passes) == js.tracker.n_kfs == ts.tracker.n_kfs
     # later passes start from a cursor their predecessors advanced
     assert passes[-1][2] > passes[1][2]
-    assert ts.tracker.n_pts_host == int(js.tracker.n_pts) > 0
+    assert ts.tracker.n_pts == int(js.tracker.n_pts) > 0
+    assert ts.tracker.n_pts_host == js.tracker.n_pts_host
     assert (int(ts.tracker.map.pt_valid.sum())
             == int(np.asarray(js.tracker.map.pt_valid).sum()) > 0)
     if mode == "fused_tracking":
         assert ts.tracker.ds is None and js.tracker.ds is None
+        assert ts.tracker.n_pts_host == 0
     else:
-        assert int(ts.tracker.ds.n_pts) == ts.tracker.n_pts_host
+        assert int(ts.tracker.ds.n_pts) == ts.tracker.n_pts
         assert ts.tracker.ds.mp.phase == 0
 
 
@@ -220,8 +223,7 @@ def test_staged_mono_like_jax():
         recs = _records(lambda f: system.track_monocular(f["image"], f["timestamp"]), frames)
         system.shutdown()
         tr = system.tracker
-        n_pts = tr.n_pts_host if isinstance(system, TSystem) else int(tr.n_pts)
-        res.append((recs, tr.n_kfs, n_pts, int(np.asarray(tr.map.pt_valid).sum())))
+        res.append((recs, tr.n_kfs, int(tr.n_pts), int(np.asarray(tr.map.pt_valid).sum())))
     (jrec, jk, jp, jl), (trec, tk, tp, tl) = res
     tracked = [i for i, r in enumerate(trec) if r[3] is not None]
     assert tracked == [i for i, r in enumerate(jrec) if r[3] is not None]
@@ -253,8 +255,7 @@ def test_monolithic_stereo_like_jax():
                                                       f["timestamp"]), frames)
         system.shutdown()
         tr = system.tracker
-        res.append((recs, tr.n_kfs, tr.n_pts_host if isinstance(system, TSystem)
-                    else int(tr.n_pts)))
+        res.append((recs, tr.n_kfs, int(tr.n_pts)))
     (jrec, jk, jp), (trec, tk, tp) = res
     assert all(r[0] == 1 for r in jrec) and all(r[0] == 1 for r in trec)
     assert [r[2] for r in trec] == [r[2] for r in jrec] and tk == jk >= 2
@@ -301,13 +302,13 @@ def test_host_compaction_like_jax(flags):
     j.n_kfs, j.n_pts_host, j.n_pts = 4, cursor, cursor
     j.last_frame = SimpleNamespace(assoc=jnp.asarray(last))
     t.map = tms.from_numpy(arrays)
-    t.n_kfs, t.n_pts_host = 4, cursor
+    t.n_kfs, t.n_pts_host, t.n_pts = 4, cursor, cursor
     t.last_frame = SimpleNamespace(assoc=torch.from_numpy(last))
     j._maybe_grow()
     t._maybe_grow()
     assert t.cfg.max_points == j.cfg.max_points == 1024
     assert t.compaction_epoch == j.compaction_epoch == 1
-    assert t.n_pts_host == j.n_pts_host == int(j.n_pts) == 400
+    assert t.n_pts_host == j.n_pts_host == int(j.n_pts) == t.n_pts == 400
     jm, tm = _np(j.map), tms.to_numpy(t.map)
     for f in jm:
         np.testing.assert_array_equal(tm[f], jm[f], err_msg=f)

@@ -112,17 +112,19 @@ def test_relocalization_like_jax(runs):
     assert np.linalg.norm(np.asarray(to.Tcw)[:3, 3] - f["Tcw_gt"][:3, 3]) < 0.02
 
 
-def test_orbit_closes_the_same_loop_as_jax():
-    """The orbit of tests/test_loop_closing.py at its widths (600 x 4,
-    80 KFs, 24576 points, fused tracking), default System with loop
-    closing: both packages close a loop on the same keyframe pair, lose
-    the same frames, and reach ATEs within 5 mm of each other."""
+@pytest.fixture(scope="module")
+def orbit_runs():
+    """The orbit of tests/test_loop_closing.py at its widths (600 x 4, 80
+    KFs, 24576 points, fused tracking), default System with loop closing,
+    in both packages, every frame's output read as it returns. Besides the
+    poses, records the (call, keyframe, pump) of every detection queued and
+    harvested, and the port's side slots (the detection packs riding the
+    stats batches)."""
     from orb_slam2_comment_tpu.models.system import System as JSystem
     from orb_slam2_comment_tpu.utils import synthetic as syn
     from orb_slam2_comment_tpu.utils.config import SlamConfig as JConfig
     from orb_slam2_comment_tpu_torch.models.system import System as TSystem
     from orb_slam2_comment_tpu_torch.utils.config import SlamConfig as TConfig
-    from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
 
     kw = dict(_cfg_kw(), n_features=600, max_keyframes=80, max_points=24576)
     scene = syn.make_scene(n_points=1800, seed=0, extent=(14.0, 8.0, 20.0))
@@ -131,23 +133,115 @@ def test_orbit_closes_the_same_loop_as_jax():
                                       K=syn.DEFAULT_K, depth=True))
     res = []
     for system in (JSystem(JConfig(**kw)), TSystem(TConfig(**kw), device="cpu")):
-        est, gt, lost = [], [], []
+        lc = system.loop_closer
+        r = dict(system=system, est=[], gt=[], lost=[], states=[], harvests=[], queued=[],
+                 sides=[])
+        finish, process = lc._finish_detect, lc.process
+
+        def record(k, *a, system=system, r=r, finish=finish):
+            r["harvests"].append((system.frame_id, k, system.loop_closer._pump_count))
+            return finish(k, *a)
+
+        def queue(k, system=system, r=r, process=process):
+            r["queued"].append((system.frame_id, k, system.loop_closer._pump_count))
+            return process(k)
+
+        lc._finish_detect, lc.process = record, queue
+        if isinstance(system, TSystem):
+            enq = system.tracker.enqueue_side
+
+            def enqueue(*a, enq=enq, r=r):
+                r["sides"].append(enq(*a))
+                return r["sides"][-1]
+
+            system.tracker.enqueue_side = enqueue
         for i, f in enumerate(frames):
             out = system.track_rgbd(f["image"], f["depth"], f["timestamp"])
+            r["states"].append(out.state)
             if out.Tcw is None:
-                lost.append(i)
+                r["lost"].append(i)
             else:
-                est.append(np.asarray(out.Tcw, np.float64))
-                gt.append(f["Tcw_gt"])
+                r["est"].append(np.asarray(out.Tcw, np.float64))
+                r["gt"].append(f["Tcw_gt"])
         system.shutdown()
+        lc._finish_detect, lc.process = finish, process
+        res.append(r)
+    return res
+
+
+def test_orbit_closes_the_same_loop_as_jax(orbit_runs):
+    """The orbit with loop closing: both packages close a loop on the same
+    keyframe pair, lose the same frames, and reach ATEs within 5 mm of
+    each other."""
+    from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
+
+    res = []
+    for r in orbit_runs:
+        system = r["system"]
         assert system.n_loops >= 1
         pair = tuple(system.loop_closer.loop_edges[0][:2])
-        res.append((pair, lost, ate_rmse(est, gt), system.tracker.n_kfs))
+        res.append((pair, r["lost"], ate_rmse(r["est"], r["gt"]), system.tracker.n_kfs))
     (jpair, jlost, jate, jk), (tpair, tlost, tate, tk) = res
     assert tpair == jpair, (tpair, jpair)
     assert tlost == jlost, (tlost, jlost)
     assert abs(tate - jate) < 5e-3, (tate, jate)
     assert tate < 0.10
+
+
+def test_orbit_harvests_wait_for_landed_transfers_like_jax(orbit_runs):
+    """The orbit's loop detections in the asynchronous pipeline (every
+    output read, so JAX's pull futures are settled at each read): the
+    detection packs ride the stats batches (every side slot done), a pack
+    is harvested at least 4 pumps after it was queued (but at shutdown,
+    which forces them), and the call and pump of every queueing and
+    harvest, its keyframe and the per-frame states equal JAX's."""
+    j, t = orbit_runs
+    assert t["harvests"] == j["harvests"] and len(t["harvests"]) >= 3
+    assert t["queued"] == j["queued"] and t["states"] == j["states"]
+    assert t["sides"] and all(s.done() for s in t["sides"])
+    born = {k: p for _, k, p in t["queued"]}
+    n = len(t["states"])
+    assert all(p - born[k] >= 4 for c, k, p in t["harvests"] if c < n)
+
+
+def test_detection_pack_with_no_frame_pending(orbit_runs):
+    """A keyframe's detection queued when the pipeline holds no frame (after
+    shutdown) rides no stats batch: 4 pumps later it is still not
+    harvested, because its transfer has not landed; forcing the harvest
+    ships it alone, as JAX's `_force_side` does, and the harvested pack
+    equals the pack computed on the device; both packages do the same."""
+    from orb_slam2_comment_tpu_torch.models import loop_closing as tlc
+
+    got = {}
+    for name, r in zip(("jax", "port"), orbit_runs):
+        system = r["system"]
+        lc, t = system.loop_closer, system.tracker
+        assert not (t._pending or t._stageA or t._upQ or t._batchQ)
+        kf = t.n_kfs - 1
+        lc.last_loop_kf = -(1 << 30)
+        seen = []
+        finish = lc._finish_detect
+        lc._finish_detect = lambda k, W, s, c, v: seen.append((k, W, s, c, v)) or False
+        lc.process(kf)
+        slot = lc._detect_q[-1][2]
+        lc._pump_count += 4
+        lc._drain_detect(force=False)
+        pending = (len(lc._detect_q), slot.done(), len(t._sideQ), len(seen))
+        lc._drain_detect(force=True)
+        lc._finish_detect = finish
+        got[name] = (pending, seen, len(t._sideQ))
+    assert got["port"][0] == got["jax"][0] == (1, False, 1, 0)
+    assert got["port"][2] == got["jax"][2] == 0
+    (k, W, s, c, v), = got["port"][1]
+    (kj, Wj, sj, cj, vj), = got["jax"][1]
+    ts = orbit_runs[1]["system"]
+    sc, cm = tlc.scores_dense(ts.db.bow, ts.db.valid, ts.db.bow[k])
+    P = tlc._detect_pack(ts.tracker.map, sc, cm).numpy()
+    K = P.shape[0]
+    np.testing.assert_array_equal(W, P[:, :K].astype(np.int32))
+    np.testing.assert_array_equal(v, P[:, K + 2] > 0.5)
+    assert k == kj and W.shape == Wj.shape
+    np.testing.assert_array_equal(v, vj)
 
 
 def test_slice_refuses_what_it_does_not_port():
