@@ -13,10 +13,10 @@ the same capacities with 2000 observations per keyframe). Each kernel is
 timed three ways: the span of one call (`ms`), 100 calls back to back
 (`per_launch_ms`) and calls replayed from a CUDA graph (`device_ms`, no
 host dispatch), beside its plain version, its bound and, for K2, the one
-PyTorch call that computes the same function. Then it drives ten paths
-of the default `System(cfg, device="cuda")` (loop closing on, as bench.py
-builds it) and the distributed BA on their maps, each with the launch
-counts set to 0 just before it and read just after:
+PyTorch call that computes the same function. Then it drives eleven
+paths of the default `System(cfg, device="cuda")` (loop closing on, as
+bench.py builds it) and the distributed BA on their maps, each with the
+launch counts set to 0 just before it and read just after:
 
   main   bench.py's config, scene and forward trajectory: every frame
          tracks, keyframes, local BA and loop detection happen, the
@@ -61,7 +61,8 @@ counts set to 0 just before it and read just after:
          rendered into data/ by the port's renderer (in a subprocess, while
          the kernels build), run through the port's run_dataset driver on
          its settings.yaml (the default SlamConfig: growth and loop closing
-         on) with prestaged frames and 2 runs: ATE < 15 mm.
+         on) with prestaged frames and 2 runs: ATE < 15 mm; fps over the
+         warm run's wall, the drain included.
   staged the bench config in the two modes outside the default: the loop
          path's orbit with fused_tracking=False (the staged ladder on the
          host path, the monolithic mapper per keyframe): every frame
@@ -69,6 +70,20 @@ counts set to 0 just before it and read just after:
          a bit-identical rerun; and main's frames 0-59 with
          chunked_mapper=False (the fused step, the monolithic mapper):
          every frame tracked, ATE < 2 cm, the same keyframes on a rerun.
+  placerec place recognition at vocabulary scale: the 560 keyframes of
+         examples/eval_vocab_pr.py (two traversals of a textured room,
+         rendered by a process pool at the start of the path, so that no
+         other path's timed window shares the host with it) extracted on
+         the card, the second traversal queried against a database of the
+         first with the 9991-word vocabulary (dense) and the 97,273-word
+         one (the inverted file): recall@1 >= 0.9 each, the card's words,
+         top-2 and scores equal to the port's CPU path on 20 queries, and
+         on the whole database, past the inverted file's posting cap, its
+         scores, shared-word counts and dropped postings equal to the CPU
+         path's on the same words; then the loop path's orbit with the
+         9991-word vocabulary and with the 97,273-word one, back to back:
+         every frame tracked, the loop the JAX package closes on the CPU,
+         ATE < 0.10 m, a bit-identical rerun; and the reloc path with it.
   dist   parallel/dist_ba.py on the maps of the main and loop paths: NCCL at
          world size 1 (distributed_global_ba on the loop map's full GBA
          problem, distributed_local_ba on the main path's last keyframe
@@ -81,9 +96,10 @@ counts set to 0 just before it and read just after:
          at the default tier's size, with its all-reduce calls and bytes.
 
 K4 is also held to its plain version on every local-BA window of the
-stereo and grow paths, and its worst field error is printed against the
-active observations per window camera; and on the largest window the
-monolithic mapper built in the staged orbit.
+stereo, grow and pipeline paths, entrywise within K4_C * 2^-24 times the
+sum of absolute contributions to the entry, and its worst field error is
+printed against the active observations per window camera; and on the
+largest window the monolithic mapper built in the staged orbit.
 
     python3 chip_smoke.py [--frames N] [--profile FILE] [--kernels-only]
 
@@ -115,7 +131,8 @@ _K4 = ("orb_slam2_comment_tpu_torch/csrc/lba_build.cu",
 # the paths at 480x640 and 1000 features, and the stereo path at 376x1241
 # and 2000 features: each row reads its kernel's launch count on the paths
 # at its shapes
-_SMALL = ("main", "pipeline", "reloc", "loop", "mono", "facade", "grow", "desk", "staged")
+_SMALL = ("main", "pipeline", "reloc", "loop", "mono", "facade", "grow", "desk", "staged",
+          "placerec")
 KERNEL_ROWS = [
     # name, (source, replaced Pallas call site), kernel counted, paths counted
     ("fast_nms", _K1, "fast_nms", _SMALL),
@@ -655,6 +672,128 @@ def k4_field_err(sp, sk, what):
     return worst
 
 
+# K4 against its plain version entrywise: |K4 - plain| <= K4_C * 2^-24 * S,
+# where S sums, in float64, each observation's contribution to the entry
+# with |.| taken before every sum (the residual obs - proj and the point
+# transform R X + t included) and first-order magnitudes carried through
+# 1/z, the Jacobians and the Huber weight (k4_abs_sums). Each build's
+# error is then at most (roundings along one observation's chain +
+# depth of its reduction) * 2^-24 * S: a chain of <= 19 roundings (the
+# transform 3, 1/z and its square 2, a Jacobian entry 4, the weight 6,
+# the product and its 3-term sum 4); K4's reductions at most 18 deep (one
+# observation per thread per chunk, 5 shuffles, 4 warps, 8 chunks in
+# order; a point's sums: strided lanes, 5 shuffles, its scan's carries);
+# the plain version on the card at most 32 (torch's strided sum and
+# shuffles over <= 2048 rows, or index_add_'s atomics over <= 32
+# observations of a point). Two builds: 2 * (19 + 32) < 128.
+K4_C = 128
+
+
+def k4_abs_sums(prob, inv, F, cam_T, pts, obs_ok, robust, K, BF):
+    """S of every entry of Hcc, bc, Hpp9, bp3 and E (float64, the plain
+    version's layouts): see K4_C. A quantity q's magnitude qm bounds the
+    scale of its rounding error (qm >= |q|): a leaf's is |q|, a sum's the
+    sum of its terms' magnitudes, a product's am |b| + |a| bm, and 1/z's
+    zm / z^2."""
+    from orb_slam2_comment_tpu_torch import constants as C
+    from orb_slam2_comment_tpu_torch.ops import optim
+
+    fx, fy, cx, cy = (float(k) for k in K)
+    d = torch.float64
+    Nc, Np = prob.cam_T.shape[0], prob.pts.shape[0]
+    cam, ptl = prob.obs_cam.long(), prob.obs_pt.long()
+    T, X, uvr = cam_T.to(d)[cam], pts.to(d)[ptl], prob.obs_uvr.to(d)
+    r, Jc, Jp, _ = optim._edge_jacobians(T, X, uvr, K, BF)
+    R, t = T[:, :3, :3], T[:, :3, 3]
+    x, y, z = ((R @ X[:, :, None])[..., 0] + t).unbind(-1)
+    xm, ym, zm = ((R.abs() @ X.abs()[:, :, None])[..., 0] + t.abs()).unbind(-1)
+    iz = 1.0 / torch.clamp(z, min=1e-9)
+    izm = zm * iz * iz
+    iz2, iz2m = iz * iz, 2.0 * iz * izm
+    um = fx * (xm * iz + x.abs() * izm) + abs(cx)
+    rm = uvr.abs() + torch.stack([um, fy * (ym * iz + y.abs() * izm) + abs(cy),
+                                  um + BF * izm], -1)      # obs - proj
+    D00, D00m = fx * iz, fx * izm
+    D02, D02m = fx * x.abs() * iz2, fx * (xm * iz2 + x.abs() * iz2m)
+    D11, D11m = fy * iz, fy * izm
+    D12, D12m = fy * y.abs() * iz2, fy * (ym * iz2 + y.abs() * iz2m)
+    D22 = (fx * x - BF).abs() * iz2
+    D22m = (fx * xm + BF) * iz2 + (fx * x - BF).abs() * iz2m
+
+    def pm(a, am, b, bm):
+        return am * b.abs() + a * bm
+
+    zr = torch.zeros_like(x)
+    Jcm = torch.stack([
+        torch.stack([D00m, zr, D02m, pm(D02, D02m, y, ym),
+                     pm(D00, D00m, z, zm) + pm(D02, D02m, x, xm), pm(D00, D00m, y, ym)], -1),
+        torch.stack([zr, D11m, D12m, pm(D11, D11m, z, zm) + pm(D12, D12m, y, ym),
+                     pm(D12, D12m, x, xm), pm(D11, D11m, x, xm)], -1),
+        torch.stack([D00m, zr, D22m, pm(D22, D22m, y, ym),
+                     pm(D00, D00m, z, zm) + pm(D22, D22m, x, xm), pm(D00, D00m, y, ym)], -1),
+    ], -2)
+    Ra = R.abs()
+    Jpm = torch.stack([D00m[:, None] * Ra[:, 0] + D02m[:, None] * Ra[:, 2],
+                       D11m[:, None] * Ra[:, 1] + D12m[:, None] * Ra[:, 2],
+                       D00m[:, None] * Ra[:, 0] + D22m[:, None] * Ra[:, 2]], -2)
+    Jca, Jpa = Jc.abs(), Jp.abs()
+    Jcm, Jpm = torch.maximum(Jcm, Jca), torch.maximum(Jpm, Jpa)
+    lvl = torch.clamp(prob.obs_oct, 0, inv.shape[0] - 1).long()
+    inv_s2 = torch.where(obs_ok, inv.to(d)[lvl], torch.zeros_like(uvr[:, 0]))
+    comp = torch.stack([torch.ones_like(inv_s2), torch.ones_like(inv_s2),
+                        prob.obs_stereo.to(d)], -1)
+    chi2 = inv_s2 * (comp * r * r).sum(-1)
+    chi2m = inv_s2 * (comp * 2.0 * r.abs() * rm).sum(-1)
+    delta = torch.where(prob.obs_stereo, C.HUBER_STEREO, C.HUBER_MONO).to(d)
+    active = (chi2 > delta * delta) if robust else torch.zeros_like(obs_ok)
+    hw = torch.where(active, delta / torch.sqrt(torch.clamp(chi2, min=1e-12)),
+                     torch.ones_like(chi2))
+    # first-order magnitude of delta / sqrt(chi2): hw * chi2m / (2 chi2)
+    hwm = torch.where(active, hw * (1.0 + chi2m / (2.0 * torch.clamp(chi2, min=1e-12))), hw)
+    free = ((~prob.cam_fixed) & prob.cam_valid)[cam].to(d)[:, None, None]
+    w, wm = (inv_s2 * hw)[:, None] * comp, (inv_s2 * hwm)[:, None] * comp
+    Jca, Jcm = Jca * free, Jcm * free
+    JcWa, JcWm = Jca * w[:, :, None], Jcm * wm[:, :, None]
+    JpWa, JpWm = Jpa * w[:, :, None], Jpm * wm[:, :, None]
+
+    def prod(Aa, Am, Ba, Bm):             # sum_k |A_ki B_kj| with magnitudes
+        return torch.einsum("oki,okj->oij", Am, Ba) + torch.einsum("oki,okj->oij", Aa, Bm)
+
+    hcc = prod(JcWa, JcWm, Jca, Jcm).reshape(-1, 36)
+    bc = (torch.einsum("oki,ok->oi", JcWm, r.abs()) + torch.einsum("oki,ok->oi", JcWa, rm))
+    hpp = prod(JpWa, JpWm, Jpa, Jpm).reshape(-1, 9)
+    bp = (torch.einsum("oki,ok->oi", JpWm, r.abs()) + torch.einsum("oki,ok->oi", JpWa, rm))
+    e = prod(JcWa, JcWm, Jpa, Jpm).reshape(-1, 18)
+    dev = hcc.device
+    key = torch.where(cam < F, cam * Np + ptl, F * Np)
+    E = torch.zeros(F * Np + 1, 18, dtype=d, device=dev).index_add_(0, key, e)[:F * Np]
+    return dict(
+        Hcc=torch.zeros(Nc, 36, dtype=d, device=dev).index_add_(0, cam, hcc)[:F]
+        .reshape(F, 6, 6),
+        bc=torch.zeros(Nc, 6, dtype=d, device=dev).index_add_(0, cam, bc)[:F],
+        Hpp9=torch.zeros(Np, 9, dtype=d, device=dev).index_add_(0, ptl, hpp).T,
+        bp3=torch.zeros(Np, 3, dtype=d, device=dev).index_add_(0, ptl, bp).T,
+        E=E.reshape(F, Np, 6, 3).permute(0, 2, 3, 1))
+
+
+def k4_sum_bound(S, sp, sk, what):
+    """Hold K4's system sk to the plain sp entrywise within K4_C * 2^-24 *
+    S; returns the worst |sk - sp| / (2^-24 * S) over the fields."""
+    worst = 0.0
+    for f, s in S.items():
+        diff = (getattr(sk, f).double() - getattr(sp, f).double()).abs()
+        unit = s * 2.0 ** -24
+        if not bool(torch.all(diff <= K4_C * unit)):
+            i = int(torch.argmax(diff - K4_C * unit))
+            raise AssertionError(
+                f"{what}: {f} differs by {float(diff.reshape(-1)[i]):.4g} where "
+                f"{K4_C} * 2^-24 * S is {float(K4_C * unit.reshape(-1)[i]):.4g}")
+        ratio = torch.where(unit > 0, diff / torch.where(unit > 0, unit, 1.0),
+                            torch.zeros_like(diff))
+        worst = max(worst, float(ratio.max()) if ratio.numel() else 0.0)
+    return worst
+
+
 def check_k4_window(prep, K, BF, path="stereo"):
     """K4 on a real local-BA window of the `path` path (the one with the
     most valid observations) where the mapper linearizes it: robust over
@@ -787,12 +926,13 @@ def check_k4(dev):
 # the paths of the default System
 # ---------------------------------------------------------------------------
 
-def make_system(cfg, dev):
+def make_system(cfg, dev, vocabulary_path=None):
     """The default System, as bench.py builds it (loop closing on), with
-    its device named; its map and database must live on the card."""
+    its device named (and a vocabulary file, when given); its map and
+    database must live on the card."""
     from orb_slam2_comment_tpu_torch.models.system import System
 
-    system = System(cfg, device=dev)
+    system = System(cfg, vocabulary_path=vocabulary_path, device=dev)
     if not (system.loop_closer is not None and system.tracker.map.kf_pose.is_cuda
             and system.tracker.map.pt_pos.is_cuda and system.db.valid.is_cuda):
         raise AssertionError("the default System is not a loop-closing system on the card")
@@ -1146,7 +1286,7 @@ def pipeline_path(cfg, frames, dev, keep):
     return out
 
 
-def reloc_path(cfg, frames, dev):
+def reloc_path(cfg, frames, dev, vocabulary_path=None):
     """Frames 0-79, three textureless frames (LOST), then frame 40 and
     41-79 again with later timestamps: the first returning frame must
     relocalize through the batched K3, within 5 cm of the truth, and every
@@ -1154,7 +1294,7 @@ def reloc_path(cfg, frames, dev):
     from orb_slam2_comment_tpu_torch.models.tracking import LOST, OK
     from orb_slam2_comment_tpu_torch.ops import lm_cuda
 
-    system = make_system(cfg, dev)
+    system = make_system(cfg, dev, vocabulary_path)
     for i, f in enumerate(frames[:80]):
         if system.track_rgbd(f["image"], f["depth"], f["timestamp"]).state != OK:
             raise AssertionError(f"reloc path: frame {i} not tracked")
@@ -1194,7 +1334,7 @@ def reloc_path(cfg, frames, dev):
     return dict(kfs_before_loss=n_kfs, lost_frame_ms=lost_ms, reloc_frame_ms=ret_ms[0],
                 reloc_translation_err_m=err, reloc_inliers=inliers[0],
                 later_frames_p50_ms=float(np.median(ret_ms[1:])),
-                n_kfs=system.tracker.n_kfs)
+                n_kfs=system.tracker.n_kfs, inverted_file=system.db.sparse, frames_run=123)
 
 
 def render_orbit():
@@ -1213,11 +1353,43 @@ def render_orbit():
     return frames
 
 
-def run_orbit(cfg, frames, dev, chunk_events=None, syncs=None):
+def timed_detection(system, detect):
+    """Wrap the loop closer's per-keyframe detection (the database query,
+    the inverted file rebuilt first after an add, and the detection pack)
+    so that `detect` receives (host ms of the call, its CUDA event pair)."""
+    lc = system.loop_closer
+    process = lc.process
+
+    def timed(kf_id):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        out = process(kf_id)
+        e.record()
+        detect.append(((time.perf_counter() - t0) * 1e3, s, e))
+        return out
+
+    lc.process = timed
+
+
+def detection_ms(detect):
+    """Median host and device ms of the timed detections."""
+    torch.cuda.synchronize()
+    return dict(detections=len(detect),
+                detect_host_ms_median=float(np.median([h for h, _, _ in detect])),
+                detect_device_ms_median=float(np.median([s.elapsed_time(e)
+                                                         for _, s, e in detect])))
+
+
+def run_orbit(cfg, frames, dev, chunk_events=None, syncs=None, vocabulary_path=None,
+              detect=None):
     """Returns (system, poses, per-frame seconds, loops closed after each
     frame, frames that ended with a global BA in flight). `syncs`, when a
-    list, receives the host syncs of each frame from frame 10 on."""
-    system = make_system(cfg, dev)
+    list, receives the host syncs of each frame from frame 10 on;
+    `detect`, when a list, the timings of every loop detection."""
+    system = make_system(cfg, dev, vocabulary_path)
+    if detect is not None:
+        timed_detection(system, detect)
     poses, secs, loops, in_flight = [], [], [], 0
     for i, f in enumerate(frames):
         t0 = time.perf_counter()
@@ -1266,8 +1438,9 @@ def loop_path(cfg, frames, dev, keep=None):
         return graph(*a, **k)
 
     optim.gba_chunk, optim.essential_graph_optimize = timed_chunk, kept_graph
+    detect = []
     try:
-        system, poses, secs, loops, in_flight = run_orbit(cfg, frames, dev)
+        system, poses, secs, loops, in_flight = run_orbit(cfg, frames, dev, detect=detect)
     finally:
         optim.gba_chunk, optim.essential_graph_optimize = chunk, graph
     torch.cuda.synchronize()
@@ -1296,6 +1469,7 @@ def loop_path(cfg, frames, dev, keep=None):
                 gba_chunk_ms_median=float(np.median([s.elapsed_time(e) for s, e in events])),
                 gba_frames_in_flight=in_flight, gba_applied=lc.n_gba_applied,
                 n_kfs=system.tracker.n_kfs, ate_m=ate, rerun_identical_frames=len(frames),
+                **detection_ms(detect),
                 reference_cpu=dict(loop_pair=[22, 0], n_kfs=27, ate_m=0.02025))
 
 
@@ -1479,6 +1653,8 @@ def same_records(a, b, what):
 
 
 def latency(secs, n_warm):
+    """fps and percentiles of per-frame seconds after n_warm frames; of a
+    call that reads its output, these time resolved frames."""
     dt = np.asarray(secs[n_warm:]) * 1e3
     return dict(timed=len(dt), fps=len(dt) / (dt.sum() / 1e3),
                 p50_ms=float(np.percentile(dt, 50)), p90_ms=float(np.percentile(dt, 90)),
@@ -1799,7 +1975,7 @@ def k4_density(windows, K, BF, what):
     over log(observations per camera)."""
     from orb_slam2_comment_tpu_torch.ops import lba_cuda, optim
 
-    curve = []
+    curve, ratios = [], []
     for prep in windows:
         prob, inv = prep.prob, prep.inv_sigma2_levels
         cam_T, pts, *_, obs_ok = optim.lba_init(prob, inv, K, BF)
@@ -1807,6 +1983,8 @@ def k4_density(windows, K, BF, what):
         sp = optim.build_system_plain(prob, inv, prep.F, cam_T, pts, obs_ok, True, K, BF)
         n_cam = max(int(prob.cam_valid.sum()), 1)
         curve.append((int(obs_ok.sum()) / n_cam, k4_field_err(sp, sk, f"K4 on a {what} window")))
+        ratios.append(k4_sum_bound(k4_abs_sums(prob, inv, prep.F, cam_T, pts, obs_ok, True, K,
+                                               BF), sp, sk, f"K4 on a {what} window"))
     x = np.asarray([c[0] for c in curve])
     y = np.asarray([c[1] for c in curve])
     keep = (y > 0) & (x > 0)
@@ -1815,33 +1993,38 @@ def k4_density(windows, K, BF, what):
     order = np.argsort(x)
     print(f"# K4 density on the {what} path: {len(curve)} windows, obs/camera "
           f"{x.min():.1f}-{x.max():.1f}, worst field rel err {y.max():.3e}; log-log slope "
-          f"{slope}; (obs/camera, err) sorted: "
+          f"{slope}; worst |K4 - plain| / (2^-24 S) {max(ratios):.3f} (bound {K4_C}); "
+          "(obs/camera, err) sorted: "
           + " ".join(f"({x[i]:.1f},{y[i]:.2e})" for i in order), flush=True)
     return dict(windows=len(curve), obs_per_cam_min=float(x.min()), obs_per_cam_max=float(x.max()),
-                worst_err=float(y.max()), loglog_slope=slope,
+                worst_err=float(y.max()), loglog_slope=slope, worst_sum_ratio=max(ratios),
                 curve=[[float(a), float(b)] for a, b in curve])
 
 
 def k4_window_errors(windows, K, BF, what):
-    """Print, for every captured local-BA window at its start (lba_init,
-    robust), each K4 field's largest magnitude in the plain version and
-    the largest difference from it. A window linearized where its BA has
-    converged has a near-zero camera gradient bc, so k4_field_err's
-    per-field relative error says little there; the absolute differences
-    show whether the kernel's rounding is that of every other window."""
+    """Hold K4 to its plain version on every captured local-BA window at
+    its start (lba_init, robust) within K4_C * 2^-24 * S entrywise, and
+    print each field's largest magnitude in the plain version, the largest
+    difference and the worst ratio to 2^-24 * S. A window linearized where
+    its BA has converged has a near-zero camera gradient bc, so
+    k4_field_err's per-field relative error says little there; S scales
+    with the rounding both builds actually do."""
     from orb_slam2_comment_tpu_torch.ops import lba_cuda, optim
 
     rows = []
-    for prep in windows:
+    for i, prep in enumerate(windows):
         prob, inv = prep.prob, prep.inv_sigma2_levels
         cam_T, pts, *_, obs_ok = optim.lba_init(prob, inv, K, BF)
         sk = lba_cuda.build_system(prep, cam_T, pts, obs_ok, True, K, BF)
         sp = optim.build_system_plain(prob, inv, prep.F, cam_T, pts, obs_ok, True, K, BF)
+        ratio = k4_sum_bound(k4_abs_sums(prob, inv, prep.F, cam_T, pts, obs_ok, True, K, BF),
+                             sp, sk, f"K4 on {what} window {i}")
         rows.append({f: (float(getattr(sp, f).double().abs().max()),
                          float((getattr(sp, f).double() - getattr(sk, f).double()).abs().max()))
-                     for f in ("Hcc", "bc", "Hpp9", "bp3", "E")} | dict(active=int(obs_ok.sum())))
-    print(f"# K4 on every {what} window (active obs, then field: max |plain|, max |diff|): "
-          + json.dumps(rows), flush=True)
+                     for f in ("Hcc", "bc", "Hpp9", "bp3", "E")}
+                    | dict(active=int(obs_ok.sum()), sum_ratio=ratio))
+    print(f"# K4 on all {len(rows)} {what} windows within {K4_C} * 2^-24 * S (active obs, "
+          "ratio, then field: max |plain|, max |diff|): " + json.dumps(rows), flush=True)
     return rows
 
 
@@ -2006,15 +2189,17 @@ def desk_path(seq, dev, smi):
     SlamConfig: growth and loop closing on), frames prestaged on the card,
     2 runs: every frame in the TUM file, ATE < 15 mm (ATE_LIMIT_M of
     tests/test_accuracy_smoke.py; the JAX package measured 5.7-6.8 mm),
-    and the warm run's latency."""
+    the warm run's fps over its wall with the final drain included, and
+    its per-call dispatch latency (a fused frame resolves after its call
+    returns, so per-call times do not time frames)."""
     from orb_slam2_comment_tpu_torch.examples import run_dataset
     from orb_slam2_comment_tpu_torch.utils.trajectory import umeyama_align
 
-    times = []
+    times, walls = [], []
     system = run_dataset.run("rgbd", "tum_rgbd", seq, settings=os.path.join(seq, "settings.yaml"),
                              associations=os.path.join(seq, "associations.txt"),
                              out_prefix=os.path.join(seq, "port"), runs=2, prestage=True,
-                             device=dev, timings=times)
+                             device=dev, timings=times, walls=walls)
     cfg = system.cfg
     if not (cfg.grow_capacity and system.loop_closer is not None and cfg.n_features == 1000
             and cfg.n_levels == 8 and system.tracker.map.kf_pose.device.type == dev.type):
@@ -2033,7 +2218,228 @@ def desk_path(seq, dev, smi):
     return dict(frames=DESK_FRAMES, frames_run=2 * DESK_FRAMES, ate_m=ate, coverage=len(ia),
                 n_kfs=system.tracker.n_kfs, n_loops=system.n_loops,
                 tiers=(cfg.max_keyframes, cfg.max_points), card=smi,
-                warm=latency(times, 5), reference_cpu=dict(ate_m_range=[0.0057, 0.0068]))
+                warm_fps=len(times) / walls[-1], warm_wall_s=walls[-1],
+                warm_dispatch=latency(times, 5),
+                reference_cpu=dict(ate_m_range=[0.0057, 0.0068]))
+
+
+# ---------------------------------------------------------------------------
+# the placerec path: place recognition at vocabulary scale (the port's
+# examples/eval_vocab_pr.py) and the loop orbit with the 97,273-word
+# vocabulary, whose database is the inverted file
+# ---------------------------------------------------------------------------
+
+PLACEREC_DIR = os.path.join(ROOT, "build", "placerec")
+# keyframes of eval_vocab_pr's workload, both traversals (the tool's default)
+PLACEREC_KFS = 560
+# the port's plain CPU path is held on a database of this many first-
+# traversal keyframes, queried by the first PLACEREC_CPU_QUERIES keyframes
+# of the second traversal (their true matches are in it)
+PLACEREC_CPU_DB = 40
+PLACEREC_CPU_QUERIES = 20
+# L1 scores against the CPU path: the same f32 terms summed in other orders
+# (tests/test_torch_placerec.py's SCORE_ATOL)
+PLACEREC_SCORE_ATOL = 1e-6
+PLACEREC_MIN_RECALL = 0.9
+# the loop path's orbit with the 97,273-word vocabulary through the JAX
+# package on the CPU, run by hand (tests/test_torch_placerec.py,
+# test_orbit_with_the_large_vocabulary_like_jax): it closes keyframe 22 on
+# keyframe 0 with 27 keyframes, as the port does on the CPU
+PLACEREC_ORBIT_REF = dict(loop_pair=[22, 0], n_kfs=27)
+
+
+def render_placerec(out, n_kfs, workers):
+    """Render eval_vocab_pr's workload of n_kfs keyframes (f32, as
+    render_quads returns them) into the .npy `out` with a process pool;
+    `out`.json receives the seconds it took."""
+    from orb_slam2_comment_tpu_torch.examples import eval_vocab_pr as E
+
+    t0 = time.perf_counter()
+    tmp = out + ".part"
+    arr = np.lib.format.open_memmap(tmp, mode="w+", dtype=np.float32,
+                                    shape=(2 * (n_kfs // 2), 480, 640))
+    E.render_all(n_kfs, workers, out=arr)
+    arr.flush()
+    del arr
+    os.replace(tmp, out)
+    with open(out + ".json", "w") as f:
+        json.dump(dict(seconds=time.perf_counter() - t0, workers=workers,
+                       n_kfs=2 * (n_kfs // 2)), f)
+
+
+def placerec_images(n_kfs, children):
+    """Run render_placerec in a new interpreter (its workers spawned from
+    it, one per core) and wait for it: nothing else runs meanwhile. The
+    process goes into `children`. Returns (the images as a read-only memory
+    map, the render's metadata, the seconds waited)."""
+    os.makedirs(PLACEREC_DIR, exist_ok=True)
+    out = os.path.join(PLACEREC_DIR, f"images_{n_kfs}.npy")
+    for f in (out, out + ".json"):
+        if os.path.exists(f):
+            os.remove(f)
+    workers = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke."
+                             f"render_placerec({out!r}, {n_kfs}, {workers})"], cwd=ROOT)
+    children.append(proc)
+    if proc.wait() != 0:
+        raise AssertionError(f"rendering the place-recognition workload failed "
+                             f"({proc.returncode})")
+    waited = time.perf_counter() - t0
+    with open(out + ".json") as f:
+        meta = json.load(f)
+    return np.load(out, mmap_mode="r"), meta, waited
+
+
+def placerec_against_cpu(voc_path, descs, valids, poses, dev):
+    """The card's evaluate() and the port's plain CPU path on the same
+    descriptors: PLACEREC_CPU_DB first-traversal keyframes indexed,
+    PLACEREC_CPU_QUERIES second-traversal ones queried; words, top-1 and
+    top-2 equal, scores within PLACEREC_SCORE_ATOL. Returns the largest
+    score difference."""
+    from orb_slam2_comment_tpu_torch.examples import eval_vocab_pr as E
+    from orb_slam2_comment_tpu_torch.ops import bow
+
+    half, n = len(poses) // 2, PLACEREC_CPU_DB
+    sel = list(range(n)) + list(range(half, half + n))
+    d, v, p = descs[sel], valids[sel], poses[sel]
+    q = PLACEREC_CPU_QUERIES
+    card = E.evaluate(bow.load_vocabulary(voc_path, dev), d, v, p, dev, n_queries=q, keep=q)
+    cpu = E.evaluate(bow.load_vocabulary(voc_path, "cpu"), d.cpu(), v.cpu(), p, "cpu",
+                     n_queries=q, keep=q)
+    worst = 0.0
+    for a, b, ka, kb in zip(card["records"], cpu["records"], card["kept"], cpu["kept"],
+                            strict=True):
+        if not np.array_equal(ka["words"], kb["words"]):
+            raise AssertionError(f"{voc_path}: query {a['q']}'s words differ from the CPU's")
+        if (a["top1"], a["top2"]) != (b["top1"], b["top2"]):
+            raise AssertionError(f"{voc_path}: query {a['q']}: top-2 {a['top2']} on the card, "
+                                 f"{b['top2']} on the CPU")
+        worst = max(worst, float(np.abs(ka["scores"] - kb["scores"]).max()))
+    if not worst <= PLACEREC_SCORE_ATOL:
+        raise AssertionError(f"{voc_path}: scores differ from the CPU's by {worst}")
+    return dict(queries=len(card["records"]), db=n, max_score_diff=worst,
+                mode_cpu=cpu["mode"])
+
+
+def placerec_cap_against_cpu(voc_path, r, dev):
+    """The card's database of evaluate() result `r` (the whole first
+    traversal) carried to the port's plain CPU path, queried there with
+    the card's words of r's kept queries: scores within PLACEREC_SCORE_ATOL,
+    equal shared-word counts and, for the inverted file, equal dropped
+    postings, which must be some (the lists past the cap of 96). Returns
+    the largest score difference and the postings dropped."""
+    from orb_slam2_comment_tpu_torch.models.keyframe_database import KeyFrameDatabase
+    from orb_slam2_comment_tpu_torch.ops import bow
+
+    db = r["db"]
+    cpu = KeyFrameDatabase.from_numpy(bow.load_vocabulary(voc_path, "cpu"), db.to_numpy(), "cpu")
+    kmax = db.valid.shape[0]
+    worst, dropped = 0.0, 0
+    for kept in r["kept"]:
+        words = torch.from_numpy(kept["words"])
+        out = []
+        for d, w in ((db, words.to(dev)), (cpu, words)):
+            sc, cm = d.scores_device(q_words_feat=w)
+            n = 0
+            if d.sparse:
+                n = int(bow.inverted_file_query(*d.postings(),
+                                                *bow.sparse_bow(d.voc.word_weight, w),
+                                                kmax=kmax)[2])
+            out.append((sc.cpu().numpy(), cm.cpu().numpy(), n))
+        (sa, ca, na), (sb, cb, nb) = out
+        if not (np.array_equal(ca, cb) and na == nb):
+            raise AssertionError(f"{voc_path}: query {kept['q']} on the whole database: "
+                                 f"shared words or dropped postings ({na}, {nb}) differ")
+        worst = max(worst, float(np.abs(sa - sb).max()))
+        dropped += na
+    if not worst <= PLACEREC_SCORE_ATOL:
+        raise AssertionError(f"{voc_path}: whole-database scores differ from the CPU's by {worst}")
+    if db.sparse and not dropped > 0:
+        raise AssertionError(f"{voc_path}: no posting list passed the cap in {len(r['kept'])} "
+                             "queries")
+    return dict(queries=len(r["kept"]), db=kmax, max_score_diff=worst, n_dropped=dropped)
+
+
+def placerec_path(cfg, orbit, frames, dev, reloc, keep, children):
+    """(a) eval_vocab_pr's workload of PLACEREC_KFS keyframes, rendered
+    first with nothing else running (placerec_images), then extracted on
+    the card (K1 and K2 once per keyframe) and evaluated with both
+    packaged vocabularies (dense at 9991 words, the inverted file at
+    97,273): recall@1 >= PLACEREC_MIN_RECALL each, the card against the
+    port's CPU path (placerec_against_cpu, placerec_cap_against_cpu).
+    (b) the loop path's orbit with the 9991-word vocabulary and then with
+    the 97,273-word one, under the same load: each tracks every frame and
+    closes the loop of the JAX package on the CPU, ATE < 0.10 m, and the
+    97k run reruns bit-identical; then the reloc path with the 97k
+    vocabulary (relocalization's candidates from the inverted file).
+    `keep` receives an evaluation frame."""
+    from orb_slam2_comment_tpu_torch.examples import eval_vocab_pr as E
+    from orb_slam2_comment_tpu_torch.models.system import VOC_ASSET, VOC_ASSET_100K
+    from orb_slam2_comment_tpu_torch.ops import bow
+    from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
+
+    images, rmeta, waited = placerec_images(PLACEREC_KFS, children)
+    _, poses = E.workload(rmeta["n_kfs"])
+    if images.shape != (len(poses), 480, 640) or images.dtype != np.float32:
+        raise AssertionError(f"rendered images {images.shape} {images.dtype}")
+    keep["image"] = np.array(images[0])
+    descs, valids, ext_ms = E.extract_all(images, dev)
+    counts = read_counts()
+    n = len(poses)
+    if not (counts["fast_nms"] == counts["gather_patches"] == n
+            and counts["pose_lm"] == counts["lba_build"] == 0):
+        raise AssertionError(f"extracting {n} keyframes launched {counts}")
+    res = dict(keyframes=n, render_s=rmeta["seconds"], render_workers=rmeta["workers"],
+               render_waited_s=waited, extract_ms_per_kf=ext_ms,
+               valid_features_min=int(valids.sum(1).min()))
+    for name, vpath in (("voc_synth", VOC_ASSET), ("voc_synth_100k", VOC_ASSET_100K)):
+        voc = bow.load_vocabulary(vpath, dev)
+        r = E.evaluate(voc, descs, valids, poses, dev, keep=PLACEREC_CPU_QUERIES)
+        print("# placerec " + E.line(name, r) + f" n_dropped max={r['n_dropped_max']} "
+              f"total={r['n_dropped_total']}", flush=True)
+        if not r["recall@1"] >= PLACEREC_MIN_RECALL:
+            raise AssertionError(f"{name}: recall@1 {r['recall@1']}")
+        if (r["mode"] == "dense") != (voc.n_words <= 16384):
+            raise AssertionError(f"{name}: {r['mode']} database at {voc.n_words} words")
+        res[name] = {k: v for k, v in r.items() if k not in ("records", "kept", "db")}
+        res[name]["against_cpu"] = placerec_against_cpu(vpath, descs, valids, poses, dev)
+        res[name]["whole_db_against_cpu"] = placerec_cap_against_cpu(vpath, r, dev)
+    # (b) the loop orbit at both vocabularies back to back, then the rerun
+    ref = PLACEREC_ORBIT_REF
+    for name, vpath in (("orbit_10k", None), ("orbit_97k", VOC_ASSET_100K)):
+        detect = []
+        system, tposes, secs, loops, _ = run_orbit(cfg, orbit, dev, vocabulary_path=vpath,
+                                                   detect=detect)
+        if system.db.sparse != (vpath is not None):
+            raise AssertionError(f"{name}: inverted file {system.db.sparse}")
+        ate = ate_rmse(tposes, [f["Tcw_gt"] for f in orbit])
+        if not (np.all(np.isfinite(np.stack(tposes))) and ate < 0.10):
+            raise AssertionError(f"{name} ATE {ate} m")
+        lc = system.loop_closer
+        pairs = [[int(x) for x in e[:2]][::-1] for e in lc.loop_edges]
+        if pairs[:1] != [ref["loop_pair"]]:
+            raise AssertionError(f"{name} closed {pairs}, the JAX package on the CPU {ref}")
+        if not lc.n_gba_applied >= 1:
+            raise AssertionError(f"{name}: a loop closed but no global BA was applied")
+        close = int(np.argmax(np.asarray(loops) >= 1))
+        res[name] = dict(
+            frames=len(orbit), n_loops=system.n_loops, loop_pairs=pairs,
+            n_kfs=system.tracker.n_kfs, closing_frame=close,
+            closing_frame_ms=secs[close] * 1e3, frame_p50_ms=float(np.median(secs) * 1e3),
+            ate_m=ate, gba_applied=lc.n_gba_applied, **detection_ms(detect), reference_cpu=ref)
+    _, tposes2, _, _, _ = run_orbit(cfg, orbit, dev, vocabulary_path=VOC_ASSET_100K)
+    for i, (a, b) in enumerate(zip(tposes, tposes2)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"97k orbit rerun differs at frame {i}")
+    res["orbit_97k"]["rerun_identical_frames"] = len(orbit)
+    res["reloc_97k"] = reloc_path(cfg, frames, dev, VOC_ASSET_100K)
+    if not res["reloc_97k"]["inverted_file"]:
+        raise AssertionError("the 97,273-word reloc System's database is not the inverted file")
+    res["reloc_10k"] = {k: reloc[k] for k in ("reloc_frame_ms", "reloc_translation_err_m",
+                                              "reloc_inliers", "n_kfs")}
+    res["frames_run"] = n + 3 * len(orbit) + res["reloc_97k"]["frames_run"]
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2321,16 +2727,19 @@ def main():
           f"cuda {torch.version.cuda}", flush=True)
 
     desk_seq, desk_proc = (None, None) if args.kernels_only else start_desk_render()
+    children = [desk_proc]
     try:
-        return run_all(args, dev, kind, smi, desk_seq, desk_proc)
+        return run_all(args, dev, kind, smi, desk_seq, desk_proc, children)
     finally:
-        if desk_proc is not None and desk_proc.poll() is None:
-            desk_proc.kill()
-            desk_proc.wait()
+        for proc in children:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
-def run_all(args, dev, kind, smi, desk_seq, desk_proc):
-    """Build, check and time the kernels, then drive the paths."""
+def run_all(args, dev, kind, smi, desk_seq, desk_proc, children):
+    """Build, check and time the kernels, then drive the paths; processes
+    started on the way go into `children`."""
     import prev_kernels
     from orb_slam2_comment_tpu_torch import _build
     from orb_slam2_comment_tpu_torch.ops import orb
@@ -2393,10 +2802,11 @@ def run_all(args, dev, kind, smi, desk_seq, desk_proc):
         raise AssertionError("K2 on the pipeline's last frame differs from its plain version")
     _, pdT, pdmask = k3_agrees(pipe_keep["calls"][-1], "K3 on the pipeline's last call")
     pk4 = check_k4_window(pipe_keep["windows"][-1], cfg.K, cfg.bf, "pipeline")
-    k4_window_errors(pipe_keep["windows"], cfg.K, cfg.bf, "pipeline")
+    prows = k4_window_errors(pipe_keep["windows"], cfg.K, cfg.bf, "pipeline")
     print(f"# pipeline shapes: K1 and K2 bit-exact on the last frame, K3 |dT|={pdT:.2e} with "
           f"{pdmask} inlier flags differing, K4 on the last window within "
-          f"{pk4['max_abs_err']:.2e}", flush=True)
+          f"{pk4['max_abs_err']:.2e} relative and on all {len(prows)} windows within "
+          f"{max(r['sum_ratio'] for r in prows):.3f} * 2^-24 * S (bound {K4_C})", flush=True)
     run("reloc", lambda: reloc_path(cfg, frames, dev), K1_K4 + ("pose_lm_batched",))
     run("loop", lambda: loop_path(cfg, orbit, dev, loop_keep), K1_K4)
     windows = []
@@ -2426,6 +2836,15 @@ def run_all(args, dev, kind, smi, desk_seq, desk_proc):
     swindows = []
     run("staged", lambda: staged_path(cfg, orbit, frames, dev, swindows, results["main"]),
         K1_K4)
+    pr_keep = {}
+    run("placerec", lambda: placerec_path(cfg, orbit, frames, dev, results["reloc"], pr_keep,
+                                          children),
+        K1_K4 + ("pose_lm_batched",))
+    # K1 and K2 on an evaluation frame (480x640, f32 as rendered)
+    _, estack, _, _, elyx = k2_inputs(cfg, pr_keep["image"], dev, "K1 on an evaluation frame")
+    if not torch.equal(orb.gather_patches(estack, elyx), orb.gather_patches_plain(estack, elyx)):
+        raise AssertionError("K2 on an evaluation frame differs from its plain version")
+    print("# placerec shapes: K1 and K2 bit-exact on the first evaluation frame", flush=True)
     k4_window = []
     run("dist", lambda: dist_path(cfg, main_keep, loop_keep, dev, k4_window), ("lba_build",))
     frames_run["vo"] = 10
@@ -2435,7 +2854,8 @@ def run_all(args, dev, kind, smi, desk_seq, desk_proc):
                          ("facade", "fast_nms", 1), ("facade", "gather_patches", 1),
                          ("grow", "fast_nms", 1), ("grow", "gather_patches", 1),
                          ("desk", "fast_nms", 1), ("desk", "gather_patches", 1),
-                         ("staged", "fast_nms", 1), ("staged", "gather_patches", 1)):
+                         ("staged", "fast_nms", 1), ("staged", "gather_patches", 1),
+                         ("placerec", "fast_nms", 1), ("placerec", "gather_patches", 1)):
         if per_path[path][k] != per * frames_run[path]:
             raise AssertionError(f"{k} launched {per_path[path][k]} times over "
                                  f"{frames_run[path]} {path} frames, not {per} per frame")

@@ -25,7 +25,8 @@ import torch
 
 def run(sensor, dataset, seq_dir, settings=None, vocabulary=None,
         associations=None, timestamps=None, out_prefix="trajectory",
-        max_frames=None, runs=None, prestage=None, device="cuda", timings=None):
+        max_frames=None, runs=None, prestage=None, device="cuda", timings=None,
+        walls=None):
     """runs>1 replays the sequence with a fresh System per run and reports
     timing from the LAST run: the first pays the one-time costs (the CUDA
     context, kernel loads, torch's first calls). Runs are bit-identical, so
@@ -36,7 +37,9 @@ def run(sensor, dataset, seq_dir, settings=None, vocabulary=None,
     reference's driver also keeps image IO out of its timer (chrono
     brackets TrackRGBD alone, Examples/RGB-D/rgbd_tum.cc:84-104).
 
-    `timings`, when a list, receives the last run's per-frame seconds.
+    `timings`, when a list, receives the last run's per-call seconds (the
+    dispatch latency of each track_* call); `walls`, when a list, receives
+    the last run's wall seconds with the final drain included.
     Returns the last run's System."""
     from orb_slam2_comment_tpu_torch.models.frame import depth_to_tensor
     from orb_slam2_comment_tpu_torch.models.system import System
@@ -143,6 +146,8 @@ def run(sensor, dataset, seq_dir, settings=None, vocabulary=None,
     system.save_trajectory_kitti(f"{out_prefix}_kitti.txt")
     system.save_keyframe_trajectory_tum(f"{out_prefix}_kf_tum.txt")
     t = np.asarray(times[5:]) if len(times) > 10 else np.asarray(times)
+    # a fused frame resolves after its call returns: these time dispatch
+    print("per-call dispatch latency (frames resolve later; see run wall incl. drain):")
     print(f"median tracking time: {np.median(t)*1e3:.1f} ms")
     print(f"mean tracking time:   {np.mean(t)*1e3:.1f} ms")
     print(f"p99 tracking time:    {np.percentile(t, 99)*1e3:.1f} ms")
@@ -152,6 +157,8 @@ def run(sensor, dataset, seq_dir, settings=None, vocabulary=None,
             print(f"# slow frame {i+5:4d}: {t[i]*1e3:8.1f} ms")
     if timings is not None:
         timings.extend(times)
+    if walls is not None:
+        walls.append(run_wall)
     return system
 
 

@@ -53,9 +53,12 @@ from orb_slam2_comment_tpu_torch.utils import trajectory as traj
 from orb_slam2_comment_tpu_torch.utils.config import (
     MONOCULAR, RGBD, STEREO, SlamConfig, resolve_device)
 
-# the port's copy of the reference's packaged vocabulary (byte-equal)
+# the port's copies of the reference's packaged vocabularies (byte-equal):
+# the 9991-word default and the 97,273-word one, whose database is the
+# inverted file (keyframe_database.SPARSE_W_THRESHOLD)
 VOC_ASSET = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "assets", "voc_synth.npz")
+VOC_ASSET_100K = os.path.join(os.path.dirname(VOC_ASSET), "voc_synth_100k.npz")
 
 
 def _warm_up(cfg: SlamConfig, device):

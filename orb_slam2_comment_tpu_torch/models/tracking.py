@@ -93,9 +93,14 @@ def _clip(ids, n: int) -> torch.Tensor:
 
 
 def check_slice(cfg: SlamConfig):
-    """Raise for a sensor the port does not run."""
+    """Raise for a sensor the port does not run, and for a fused RGB-D
+    pipeline with no stage-A lag (the reference pops its empty stage-A
+    queue on the first fused frame and fails there)."""
     if cfg.sensor not in (RGBD, STEREO, MONOCULAR):
         raise NotImplementedError(f"sensor {cfg.sensor!r}")
+    if cfg.sensor == RGBD and cfg.fused_tracking and cfg.pipeline_lag < 1:
+        raise ValueError(f"pipeline_lag={cfg.pipeline_lag}: a fused RGB-D pipeline needs "
+                         "pipeline_lag >= 1")
 
 
 # ---------------------------------------------------------------------------

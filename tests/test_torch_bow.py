@@ -16,6 +16,7 @@ torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSET = os.path.join(ROOT, "orb_slam2_comment_tpu", "assets", "voc_synth.npz")
+ASSET_100K = os.path.join(ROOT, "orb_slam2_comment_tpu", "assets", "voc_synth_100k.npz")
 
 
 @pytest.fixture(scope="module")
@@ -24,6 +25,16 @@ def vocs():
     from orb_slam2_comment_tpu_torch.ops import bow as tb
 
     return jb.load_vocabulary(ASSET), tb.load_vocabulary(ASSET)
+
+
+@pytest.fixture(scope="module")
+def vocs100k():
+    """Both packages' 97,273-word vocabulary, each from its own asset."""
+    from orb_slam2_comment_tpu.ops import bow as jb
+    from orb_slam2_comment_tpu_torch.models.system import VOC_ASSET_100K
+    from orb_slam2_comment_tpu_torch.ops import bow as tb
+
+    return jb.load_vocabulary(ASSET_100K), tb.load_vocabulary(VOC_ASSET_100K)
 
 
 def _flip_bits(desc, n_flips, r):
@@ -128,18 +139,23 @@ def _db_map(r):
     return m, kf_desc, pt_desc, obs
 
 
-@pytest.mark.parametrize("sparse", [False, True])
-def test_database_candidates_match_jax(vocs, sparse, monkeypatch):
+@pytest.mark.parametrize("sparse", [False, True, "voc100k"])
+def test_database_candidates_match_jax(request, sparse, monkeypatch):
+    """Loop and relocalization candidates, the scores of a stored keyframe
+    and a database carried across packages: dense, the inverted file over
+    the 9991-word vocabulary pushed past the threshold, and the inverted
+    file of the 97,273-word vocabulary with no threshold moved."""
     from orb_slam2_comment_tpu.models import keyframe_database as jdb
     from orb_slam2_comment_tpu.models import map_state as jms
     from orb_slam2_comment_tpu_torch.models import keyframe_database as tdb
     from orb_slam2_comment_tpu_torch.models import map_state as tms
     from orb_slam2_comment_tpu_torch.ops import bow as tb
 
-    if sparse:   # voc_synth has 9991 words: push it over the threshold
+    if sparse is True:   # voc_synth has 9991 words: push it over the threshold
         monkeypatch.setattr(jdb, "SPARSE_W_THRESHOLD", 1000)
         monkeypatch.setattr(tdb, "SPARSE_W_THRESHOLD", 1000)
-    jv, tv = vocs
+    jv, tv = request.getfixturevalue("vocs100k" if sparse == "voc100k" else "vocs")
+    sparse = bool(sparse)
     r = np.random.default_rng(5)
     jm, kf_desc, pt_desc, obs = _db_map(r)
     tm = tms.from_numpy({k: np.asarray(v) for k, v in jm._asdict().items()})
@@ -157,6 +173,11 @@ def test_database_candidates_match_jax(vocs, sparse, monkeypatch):
         jc = jd.detect_loop_candidates(jm, kf, 0.0)
         tc = td.detect_loop_candidates(tm, kf, 0.0)
         assert tc == jc and len(jc) > 0, (tc, jc)
+        # the scores and shared-word counts of a stored keyframe (the loop
+        # closer's query), within f32 rounding of JAX's sum order
+        (js, jn), (ts, tn) = jd.scores_device(kf_id=kf), td.scores_device(kf_id=kf)
+        np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
     # relocalization queries: a noisy re-observation of KF 5's and KF 11's features
     for src in (5, 11):
         q = _flip_bits(pt_desc[obs[src]], 2, r)

@@ -127,5 +127,8 @@ def test_run_ours_on_the_desk_head(desk_head, tmp_path, monkeypatch):
     assert r["n_poses"] == 10 and r["coverage"] == 1.0
     assert r["ate_rmse_m"] < 0.015
     assert r["runs_in_process"] == 2 and r["loops"] == 0
-    for k in ("median_track_s", "mean_track_s", "p99_track_s", "fps", "warm_wall_s"):
+    for k in ("median_track_s", "mean_track_s", "p99_track_s", "fps", "warm_wall_s",
+              "dispatch_fps"):
         assert r[k] > 0, k
+    # the headline fps is the warm run's frames over its wall, drain included
+    assert abs(r["fps"] - 10 / r["warm_wall_s"]) < 0.1

@@ -354,3 +354,32 @@ def test_mono_frame_with_double_features_like_jax():
     same = (t.feats.desc.numpy()[v] == np.asarray(j.feats.desc).view(np.int32)[v]).all(1)
     assert same.mean() > 0.99
     assert (t.uright.numpy() == -1).all() and (t.depth.numpy() == -1).all()
+
+
+def test_pipeline_lag_below_one_refused_where_jax_fails():
+    """pipeline_lag=0: JAX pops its empty stage-A queue on the first fused
+    RGB-D frame (IndexError); the port refuses the configuration up front
+    with a ValueError naming pipeline_lag. Where JAX runs without stage A
+    (a stereo or staged RGB-D System) the port builds and tracks."""
+    from orb_slam2_comment_tpu.models.system import System as JSystem
+    from orb_slam2_comment_tpu.utils.config import SlamConfig as JConfig
+    from orb_slam2_comment_tpu_torch.models.system import System as TSystem
+    from orb_slam2_comment_tpu_torch.models.tracking import Tracker
+    from orb_slam2_comment_tpu_torch.utils.config import SlamConfig as TConfig
+
+    frames = _forward(3)
+    js = JSystem(JConfig(**_cfg_kw(pipeline_lag=0)))
+    with pytest.raises(IndexError):
+        for f in frames:
+            js.track_rgbd(f["image"], f["depth"], f["timestamp"])
+        js.shutdown()
+    for build in (lambda c: TSystem(c, device="cpu"), lambda c: Tracker(c, device="cpu")):
+        for lag in (0, -1):
+            with pytest.raises(ValueError, match="pipeline_lag"):
+                build(TConfig(**_cfg_kw(pipeline_lag=lag)))
+    for kw in (dict(sensor="stereo"), dict(fused_tracking=False)):
+        TSystem(TConfig(**_cfg_kw(pipeline_lag=0, **kw)), device="cpu").shutdown()
+    staged = TSystem(TConfig(**_cfg_kw(pipeline_lag=0, fused_tracking=False)), device="cpu")
+    outs = [staged.track_rgbd(f["image"], f["depth"], f["timestamp"]) for f in frames]
+    assert [o.state for o in outs] == [1, 1, 1]
+    staged.shutdown()

@@ -112,14 +112,15 @@ def test_relocalization_like_jax(runs):
     assert np.linalg.norm(np.asarray(to.Tcw)[:3, 3] - f["Tcw_gt"][:3, 3]) < 0.02
 
 
-@pytest.fixture(scope="module")
-def orbit_runs():
+def _orbit_pair(lagged: bool):
     """The orbit of tests/test_loop_closing.py at its widths (600 x 4, 80
     KFs, 24576 points, fused tracking), default System with loop closing,
-    in both packages, every frame's output read as it returns. Besides the
-    poses, records the (call, keyframe, pump) of every detection queued and
-    harvested, and the port's side slots (the detection packs riding the
-    stats batches)."""
+    in both packages: every frame's output read as it returns, or (lagged)
+    each frame resolved and read `pipeline_lag` calls after it arrives
+    (`_flush_upto(i - lag)`, as bench.py's warm-up does). Besides the
+    poses, records the (call, keyframe, pump) of every detection queued
+    and harvested, the frames that made keyframes and the port's side
+    slots (the detection packs riding the stats batches)."""
     from orb_slam2_comment_tpu.models.system import System as JSystem
     from orb_slam2_comment_tpu.utils import synthetic as syn
     from orb_slam2_comment_tpu.utils.config import SlamConfig as JConfig
@@ -135,7 +136,7 @@ def orbit_runs():
     for system in (JSystem(JConfig(**kw)), TSystem(TConfig(**kw), device="cpu")):
         lc = system.loop_closer
         r = dict(system=system, est=[], gt=[], lost=[], states=[], harvests=[], queued=[],
-                 sides=[])
+                 sides=[], kf_frames=[])
         finish, process = lc._finish_detect, lc.process
 
         def record(k, *a, system=system, r=r, finish=finish):
@@ -155,18 +156,38 @@ def orbit_runs():
                 return r["sides"][-1]
 
             system.tracker.enqueue_side = enqueue
-        for i, f in enumerate(frames):
-            out = system.track_rgbd(f["image"], f["depth"], f["timestamp"])
+
+        def read(i, out, r=r):
             r["states"].append(out.state)
+            if out.created_kf:
+                r["kf_frames"].append(i)
             if out.Tcw is None:
                 r["lost"].append(i)
             else:
                 r["est"].append(np.asarray(out.Tcw, np.float64))
-                r["gt"].append(f["Tcw_gt"])
+                r["gt"].append(frames[i]["Tcw_gt"])
+
+        outs, lag = [], system.cfg.pipeline_lag
+        for i, f in enumerate(frames):
+            outs.append(system.track_rgbd(f["image"], f["depth"], f["timestamp"]))
+            if not lagged:
+                read(i, outs[-1])
+            elif i >= lag:
+                system.tracker._flush_upto(i - lag)
+                read(i - lag, outs[i - lag])
         system.shutdown()
+        if lagged:
+            for i in range(max(len(frames) - lag, 0), len(frames)):
+                read(i, outs[i])
         lc._finish_detect, lc.process = finish, process
         res.append(r)
     return res
+
+
+@pytest.fixture(scope="module")
+def orbit_runs():
+    """_orbit_pair with every output read as it returns."""
+    return _orbit_pair(lagged=False)
 
 
 def test_orbit_closes_the_same_loop_as_jax(orbit_runs):
@@ -202,6 +223,31 @@ def test_orbit_harvests_wait_for_landed_transfers_like_jax(orbit_runs):
     born = {k: p for _, k, p in t["queued"]}
     n = len(t["states"])
     assert all(p - born[k] >= 4 for c, k, p in t["harvests"] if c < n)
+
+
+@pytest.mark.skipif(os.environ.get("RUN_SLOW_TESTS", "") in ("", "0"),
+                    reason="a second orbit in both packages is opt-in (RUN_SLOW_TESTS=1); "
+                           "PERF.md records its result")
+def test_lagged_orbit_harvests_like_jax():
+    """The orbit resolved `pipeline_lag` frames late in both packages (the
+    side channel under bench.py's flush schedule): the call and pump of
+    every detection queued and harvested, its keyframe, the frames that
+    made keyframes, the per-frame states and the loop pair equal JAX's,
+    every side slot landed, and a pack is harvested at least 4 pumps after
+    it was queued (but at shutdown)."""
+    j, t = _orbit_pair(lagged=True)
+    assert t["harvests"] == j["harvests"] and len(t["harvests"]) >= 3
+    assert t["queued"] == j["queued"] and t["states"] == j["states"]
+    assert t["kf_frames"] == j["kf_frames"]
+    assert t["sides"] and all(s.done() for s in t["sides"])
+    pairs = [tuple(r["system"].loop_closer.loop_edges[0][:2]) if r["system"].n_loops else None
+             for r in (j, t)]
+    assert pairs[0] == pairs[1] and pairs[0] is not None, pairs
+    born = {k: p for _, k, p in t["queued"]}
+    n = len(t["states"])
+    assert all(p - born[k] >= 4 for c, k, p in t["harvests"] if c < n)
+    print(f"\nlagged orbit: loop {pairs[1]}, {len(t['harvests'])} harvests, keyframes at "
+          f"{t['kf_frames']}")
 
 
 def test_detection_pack_with_no_frame_pending(orbit_runs):
@@ -308,8 +354,10 @@ def test_public_classes_need_cuda_unless_told_cpu(which):
 
 def test_port_never_imports_jax():
     """In a fresh process, import every module of the port, chip_smoke and
-    its prev_kernels, load the vocabulary and render a frame: no jax module is loaded, no
-    loaded module's file and no opened file lies in the JAX package."""
+    its prev_kernels, load both packaged vocabularies, build the
+    place-recognition workload and render a frame: no jax module is
+    loaded, no loaded module's file and no opened file lies in the JAX
+    package."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     code = (
         "import importlib, os, pkgutil, sys\n"
@@ -324,10 +372,12 @@ def test_port_never_imports_jax():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke, prev_kernels\n"
-        "from orb_slam2_comment_tpu_torch.models.system import VOC_ASSET\n"
+        "from orb_slam2_comment_tpu_torch.examples import eval_vocab_pr\n"
         "from orb_slam2_comment_tpu_torch.ops import bow\n"
         "from orb_slam2_comment_tpu_torch.utils import synthetic as syn\n"
-        "bow.load_vocabulary(VOC_ASSET)\n"
+        "for path in eval_vocab_pr.default_vocabularies():\n"
+        "    bow.load_vocabulary(path)\n"
+        "eval_vocab_pr.workload(4)\n"
         "scene = syn.make_scene(n_points=50, seed=0)\n"
         "syn.render(scene, syn.make_trajectory('forward', 2)[1], syn.DEFAULT_K, (48, 64))\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
@@ -404,6 +454,25 @@ def _same_vocabulary():
                        "voc_synth.npz")
     with open(VOC_ASSET, "rb") as a, open(ref, "rb") as b:
         assert a.read() == b.read()
+
+
+def _same_vocabulary_100k():
+    """The 97,273-word vocabulary, whose database is the inverted file."""
+    import orb_slam2_comment_tpu
+    from orb_slam2_comment_tpu_torch.models.system import VOC_ASSET_100K
+
+    ref = os.path.join(os.path.dirname(orb_slam2_comment_tpu.__file__), "assets",
+                       "voc_synth_100k.npz")
+    with open(VOC_ASSET_100K, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
+
+
+def _same_vocab_pr_workload():
+    """The jitter rotation of tools/eval_vocab_pr.py, in the port's
+    examples/eval_vocab_pr.py (its poses: tests/test_torch_placerec.py)."""
+    from orb_slam2_comment_tpu_torch.examples import eval_vocab_pr as T
+
+    _same_source(_tools_module("eval_vocab_pr"), T, ("_rotvec",))
 
 
 def _same_vocab_training():
@@ -535,10 +604,11 @@ def _same_h2h_evaluation():
 
 
 @pytest.mark.parametrize("check", [_same_constants, _same_frames, _same_trajectory_eval,
-                                   _same_vocabulary, _same_vocab_training, _same_vocab_text,
+                                   _same_vocabulary, _same_vocabulary_100k,
+                                   _same_vocab_training, _same_vocab_text,
                                    _same_settings_readers, _same_dataset_readers,
                                    _same_renderer, _same_ar, _same_dataset_makers,
-                                   _same_h2h_evaluation],
+                                   _same_h2h_evaluation, _same_vocab_pr_workload],
                          ids=lambda f: f.__name__[6:])
 def test_port_copies_equal_jax(check):
     """The port's own copies of the JAX package's numpy-only modules and of
