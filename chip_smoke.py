@@ -94,6 +94,14 @@ launch counts set to 0 just before it and read just after:
          for cam_major=True, poses within 1e-3 of the ragged build); one GBA
          iteration timed at world sizes 1 and 2 and on the synthetic problem
          at the default tier's size, with its all-reduce calls and bytes.
+  leftovers the last public pieces on maps already built:
+         local_mapping.fuse_into_keyframe on the main path's final map,
+         its newest keyframe fused into its best covisible neighbour, on
+         the card and on the CPU from the same map (equal association and
+         map tables, positions within 1e-5 m); and the main path's last
+         local-BA window through local_bundle_adjustment(cam_major=True):
+         its K4 launches, every linearization held to the plain version
+         within K4_C * 2^-24 * S, poses within 1e-3 of the CPU's solve.
 
 K4 is also held to its plain version on every local-BA window of the
 stereo, grow and pipeline paths, entrywise within K4_C * 2^-24 times the
@@ -148,8 +156,8 @@ KERNEL_ROWS = [
     # path's VO frames (a subset of the pose_lm row's launches)
     ("pose_lm@vo", _K3, "pose_lm", ("vo",)),
     # K4 on the main path's last local-BA window; counts the dist path's
-    # local_bundle_adjustment(cam_major=True)
-    ("lba_build@lba", _K4, "lba_build", ("dist",)),
+    # local_bundle_adjustment(cam_major=True) and the leftovers path's
+    ("lba_build@lba", _K4, "lba_build", ("dist", "leftovers")),
     # K4 on the largest window the monolithic mapper built in the staged
     # orbit; counts the staged path
     ("lba_build@staged", _K4, "lba_build", ("staged",)),
@@ -2688,6 +2696,94 @@ def dist_path(cfg, main_keep, loop_keep, dev, k4_window):
     return out
 
 
+FUSE_POS_TOL, LBA_CPU_POSE_TOL = 1e-5, 1e-3
+
+
+def leftovers_path(cfg, main_keep, k4_window, dev):
+    """The last public pieces of the port on maps already built: (1)
+    fuse_into_keyframe on the main path's final map, its newest keyframe
+    fused into its best covisible neighbour, on the card and on the CPU
+    from the same map: merges, association and map tables equal, positions
+    within FUSE_POS_TOL; (2) the main path's last local-BA window (the
+    K4@lba row's) through local_bundle_adjustment(cam_major=True): its K4
+    launches, each linearization (recorded by lba_cuda.build_system.record)
+    held to the plain version within K4_C * 2^-24 * S, and poses within
+    LBA_CPU_POSE_TOL of the CPU's solve."""
+    from orb_slam2_comment_tpu_torch.models import local_mapping as lm
+    from orb_slam2_comment_tpu_torch.models import map_state as ms
+    from orb_slam2_comment_tpu_torch.ops import lba_cuda, optim
+
+    out = {}
+    m = main_keep["map"]
+    kf = int(torch.nonzero(m.kf_valid).max())
+    w = ms.covisibility_weights(m, kf).clone()
+    w[kf] = 0
+    nb = int(torch.argmax(w))
+    cpu = torch.device("cpu")
+    mc = ms.from_numpy(ms.to_numpy(m), cpu)
+    t0 = time.perf_counter()
+    gm, gn = lm.fuse_into_keyframe(m, kf, nb, cfg)
+    _sync(dev)
+    fuse_ms = (time.perf_counter() - t0) * 1e3
+    cm, cn = lm.fuse_into_keyframe(mc, kf, nb, cfg)
+    differ = {}
+    for f in (fl.name for fl in dataclasses.fields(gm)):
+        a, b = getattr(gm, f).cpu(), getattr(cm, f)
+        if a.dtype.is_floating_point:
+            d = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+            if not d <= FUSE_POS_TOL:
+                differ[f] = f"max |card - cpu| {d:.3g}"
+        elif not torch.equal(a, b):
+            differ[f] = f"{int((a != b).sum())} entries"
+    changed = int((gm.kf_obs != m.kf_obs).sum())
+    out["fuse_into_keyframe"] = dict(src_kf=kf, dst_kf=nb, covisibility=int(w[nb]),
+                                     merges=int(gn), merges_cpu=int(cn),
+                                     obs_entries_changed=changed, ms=fuse_ms)
+    print(f"# leftovers: fuse_into_keyframe({kf} -> {nb}, covisibility {int(w[nb])}) on the "
+          f"card: {int(gn)} merges (CPU {int(cn)}), {changed} association entries changed, "
+          f"{fuse_ms:.2f} ms", flush=True)
+    if differ or int(gn) != int(cn):
+        # the cause: which features matched differently on the two devices
+        src = m.kf_obs[kf]
+        print(f"# leftovers: fuse_into_keyframe card vs CPU differ: {differ}; the projected "
+              f"points: {int((src >= 0).sum())}; the card's row of keyframe {nb} against "
+              f"the CPU's at {torch.nonzero(gm.kf_obs[nb].cpu() != cm.kf_obs[nb]).flatten()[:20].tolist()}",
+              flush=True)
+        raise AssertionError(f"fuse_into_keyframe: card and CPU differ ({differ}, merges "
+                             f"{int(gn)} vs {int(cn)})")
+
+    wprob, winv, F = k4_window[0]
+    cprob = optim.BAProblem(*(t.cpu() for t in wprob))
+    K, bf = cfg.K, cfg.bf
+    calls = []
+    k0 = lba_cuda.build_system.launches
+    lba_cuda.build_system.record = calls
+    try:
+        res = optim.local_bundle_adjustment(wprob, winv, K, bf, cam_major=True, n_free=F)
+    finally:
+        lba_cuda.build_system.record = None
+    _sync(dev)
+    launches = lba_cuda.build_system.launches - k0
+    if launches < 1 or launches != len(calls):
+        raise AssertionError(f"local BA: {launches} K4 launches, {len(calls)} recorded")
+    ratios = [k4_sum_bound(k4_abs_sums(wprob, winv, F, cT, pt, ok, rb, K, bf),
+                           optim.build_system_plain(wprob, winv, F, cT, pt, ok, rb, K, bf),
+                           sk, f"K4 in local_bundle_adjustment, launch {i}")
+              for i, (cT, pt, ok, rb, sk) in enumerate(calls)]
+    ref = optim.local_bundle_adjustment(cprob, winv.cpu(), K, bf, cam_major=True, n_free=F)
+    err = _pose_err(res.cam_T.cpu(), ref.cam_T)
+    if not err < LBA_CPU_POSE_TOL:
+        raise AssertionError(f"local BA: card poses {err} from the CPU's")
+    out["local_ba"] = dict(
+        window=[wprob.cam_T.shape[0], wprob.pts.shape[0], int(wprob.obs_valid.sum())],
+        k4_launches=launches, worst_sum_ratio=max(ratios), pose_err_vs_cpu=err,
+        pts_max_abs_diff_vs_cpu=float((res.pts.cpu() - ref.pts).abs().max()),
+        inlier_flags_differing_vs_cpu=int((res.obs_inlier.cpu() != ref.obs_inlier).sum()))
+    print(f"# leftovers: local_bundle_adjustment on the main path's last window: "
+          f"{json.dumps(out['local_ba'])}", flush=True)
+    return out
+
+
 def drive(name, fn, path_kernels, per_path):
     """Run one path with the launch counts set to 0 just before it and read
     just after; every kernel the path runs must have launched."""
@@ -2847,6 +2943,7 @@ def run_all(args, dev, kind, smi, desk_seq, desk_proc, children):
     print("# placerec shapes: K1 and K2 bit-exact on the first evaluation frame", flush=True)
     k4_window = []
     run("dist", lambda: dist_path(cfg, main_keep, loop_keep, dev, k4_window), ("lba_build",))
+    run("leftovers", lambda: leftovers_path(cfg, main_keep, k4_window, dev), ("lba_build",))
     frames_run["vo"] = 10
     for path, k, per in (("main", "fast_nms", 1), ("pipeline", "fast_nms", 1),
                          ("pipeline", "gather_patches", 1), ("stereo", "fast_nms", 2),

@@ -136,6 +136,9 @@ class AdaptiveRelocalizer:
         self.fail_streak = 0
         self._n_cand = RELOC_MAX_CANDIDATES
 
+    def reset(self):
+        self.fail_streak = 0
+
     def __call__(self, m, db, frame, cfg):
         pages = max(1, -(-self._n_cand // RELOC_MAX_CANDIDATES))
         offset = (self.fail_streak % pages) * RELOC_MAX_CANDIDATES

@@ -106,7 +106,7 @@ def build_system(prep: LBAPrep, cam_T, pts, obs_ok, robust: bool, K, bf) -> LBAS
     _build.check(err, "slam_lba_build")
     build_system.launches += 1
     o_hcc = n_e + n_pp
-    return LBASystem(
+    out = LBASystem(
         Hcc=sys_[o_hcc:o_hcc + F * 36].view(F, 6, 6),
         bc=sys_[o_hcc + F * 36:o_hcc + F * 42].view(F, 6),
         Hpp9=sys_[n_e:n_e + 9 * Np].view(9, Np),
@@ -115,6 +115,13 @@ def build_system(prep: LBAPrep, cam_T, pts, obs_ok, robust: bool, K, bf) -> LBAS
         cost=sys_[-1],
         n_in=n_in,
     )
+    if build_system.record is not None:
+        build_system.record.append((cam_T, pts, obs_ok, robust, out))
+    return out
 
 
 build_system.launches = 0
+# None, or a list to which each launch appends (cam_T, pts, obs_ok, robust,
+# system), so that a solve's every linearization can be held to the plain
+# version afterwards (chip_smoke.py)
+build_system.record = None

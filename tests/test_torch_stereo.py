@@ -103,6 +103,38 @@ def runs():
     return frames, jrec, trec, trec2
 
 
+@pytest.fixture(scope="module")
+def forced(runs):
+    """The port over the same frames with its pyramid resize replaced by
+    the JAX package's of the same input level (tests/lockstep_run.py);
+    JAX's records are the `runs` fixture's."""
+    from lockstep_run import jax_resize_level
+    from orb_slam2_comment_tpu_torch.models.system import System as TSystem
+    from orb_slam2_comment_tpu_torch.ops import orb as torb
+    from orb_slam2_comment_tpu_torch.utils.config import SlamConfig as TConfig
+
+    frames = runs[0]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torb, "_resize_level", jax_resize_level)
+        return _run(TSystem(TConfig(**_cfg_kw()), enable_loop_closing=False, device="cpu"),
+                    frames)
+
+
+def test_stereo_lockstep_on_the_jax_pyramid(runs, forced):
+    """On JAX's pyramid the port extracts JAX's features, so every frame
+    has JAX's state and keyframe decision; inliers within 2 and
+    translations within 2e-4 m of JAX's (measured over these 10 frames: 1
+    inlier and 9.9e-5 m, at frame 2, where the port on its own pyramid
+    also parts by 1.0e-4 m: the pose LM's f32 rounding)."""
+    _, jrec, _, _ = runs
+    assert [r[0] for r in forced] == [r[0] for r in jrec]
+    assert [r[2] for r in forced] == [r[2] for r in jrec]
+    d_inl = max(abs(a[1] - b[1]) for a, b in zip(forced, jrec))
+    d_t = max(np.abs(a[3][:3, 3] - b[3][:3, 3]).max() for a, b in zip(forced, jrec))
+    assert d_inl <= 2, d_inl
+    assert d_t <= 2e-4, d_t
+
+
 def test_stereo_system_tracks_like_jax(runs):
     """Every frame tracked in both, keyframes at the same frames,
     translations within 1 mm, inliers within 5, ATE within 0.5 mm of
