@@ -165,24 +165,28 @@ KERNEL_ROWS = [
 K1_K4 = ("fast_nms", "gather_patches", "pose_lm", "lba_build")
 
 
-def counters():
-    """kernel -> (wrapper, attribute) of its launch count."""
-    from orb_slam2_comment_tpu_torch.ops import lba_cuda, lm_cuda, orb
+# kernel -> its launch counter in the port's tracer
+LAUNCH_COUNTERS = {"fast_nms": "launch.K1", "gather_patches": "launch.K2", "pose_lm": "launch.K3",
+                   "lba_build": "launch.K4", "pose_lm_batched": "launch.K3b"}
+_count_base = {}
 
-    return {"fast_nms": (orb.fast_nms_levels, "launches"),
-            "gather_patches": (orb.gather_patches, "launches"),
-            "pose_lm": (lm_cuda.pose_optimize_lm, "launches"),
-            "lba_build": (lba_cuda.build_system, "launches"),
-            "pose_lm_batched": (lm_cuda.pose_optimize_lm, "batched_launches")}
+
+def launches(kernel):
+    """The tracer's running launch count of one kernel (LAUNCH_COUNTERS)."""
+    from orb_slam2_comment_tpu_torch.utils import trace
+
+    return trace.counters().get(LAUNCH_COUNTERS[kernel], 0)
 
 
 def zero_counts():
-    for fn, attr in counters().values():
-        setattr(fn, attr, 0)
+    """Start read_counts() from 0 (the tracer's counters only grow)."""
+    _count_base.clear()
+    _count_base.update({k: launches(k) for k in LAUNCH_COUNTERS})
 
 
 def read_counts():
-    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
+    """kernel -> launches since the last zero_counts()."""
+    return {k: launches(k) - _count_base.get(k, 0) for k in LAUNCH_COUNTERS}
 
 
 def cuda_ms(fn, reps=30, warm=3):
@@ -1300,7 +1304,6 @@ def reloc_path(cfg, frames, dev, vocabulary_path=None):
     relocalize through the batched K3, within 5 cm of the truth, and every
     later frame must track."""
     from orb_slam2_comment_tpu_torch.models.tracking import LOST, OK
-    from orb_slam2_comment_tpu_torch.ops import lm_cuda
 
     system = make_system(cfg, dev, vocabulary_path)
     for i, f in enumerate(frames[:80]):
@@ -1322,7 +1325,7 @@ def reloc_path(cfg, frames, dev, vocabulary_path=None):
     ret_ms, inliers = [], []
     for j, f in enumerate(frames[40:80]):
         ts += 1.0 / 30
-        b0 = lm_cuda.pose_optimize_lm.batched_launches
+        b0 = launches("pose_lm_batched")
         t0 = time.perf_counter()
         out = resolved(system.track_rgbd(f["image"], f["depth"], ts))
         torch.cuda.synchronize()
@@ -1334,7 +1337,7 @@ def reloc_path(cfg, frames, dev, vocabulary_path=None):
             err = float(np.linalg.norm(np.asarray(out.Tcw)[:3, 3] - f["Tcw_gt"][:3, 3]))
             if not err < 0.05:
                 raise AssertionError(f"relocalized frame 40 is {err} m off")
-            if lm_cuda.pose_optimize_lm.batched_launches == b0:
+            if launches("pose_lm_batched") == b0:
                 raise AssertionError("relocalization did not launch the batched K3")
     system.shutdown()
     if system.n_resets:
@@ -1790,7 +1793,7 @@ def facade_path(cfg, frames, orbit, loop, dev, vo_problem, per_path):
     import tempfile
 
     from orb_slam2_comment_tpu_torch.models.system import VOC_ASSET, System
-    from orb_slam2_comment_tpu_torch.ops import bow, lm_cuda, optim
+    from orb_slam2_comment_tpu_torch.ops import bow, optim
     from orb_slam2_comment_tpu_torch.utils.trajectory import ate_rmse
 
     gt0 = frames[0]["Tcw_gt"]
@@ -1870,10 +1873,10 @@ def facade_path(cfg, frames, orbit, loop, dev, vo_problem, per_path):
         t0 = time.perf_counter()
         s2.load_map(f"{d}/map.npz")
         res["load_map_s"] = time.perf_counter() - t0
-        c0, b0, ld_s = read_counts(), lm_cuda.pose_optimize_lm.batched_launches, []
+        c0, b0, ld_s = read_counts(), launches("pose_lm_batched"), []
         s2.activate_localization_mode()
         outs = track_ok(s2, frames[60:61], "after load_map", ld_s)
-        if lm_cuda.pose_optimize_lm.batched_launches == b0:
+        if launches("pose_lm_batched") == b0:
             raise AssertionError("the first frame after load_map did not relocalize")
         s2.deactivate_localization_mode()
         outs += track_ok(s2, frames[61:80], "after load_map", ld_s)
@@ -2609,7 +2612,7 @@ def dist_path(cfg, main_keep, loop_keep, dev, k4_window):
 
     from orb_slam2_comment_tpu_torch.models import local_mapping as lm
     from orb_slam2_comment_tpu_torch.models.loop_closing import _build_gba_problem
-    from orb_slam2_comment_tpu_torch.ops import lba_cuda, optim
+    from orb_slam2_comment_tpu_torch.ops import optim
     from orb_slam2_comment_tpu_torch.parallel import dist_ba
 
     K, bf = cfg.K, cfg.bf
@@ -2675,13 +2678,13 @@ def dist_path(cfg, main_keep, loop_keep, dev, k4_window):
           f"{out['gba_gloo_world2']}", flush=True)
 
     F = min(cfg.ba_free_kfs, cfg.max_keyframes)
-    k0 = lba_cuda.build_system.launches
+    k0 = launches("lba_build")
     a = optim.local_bundle_adjustment(wprob, winv, K, bf, cam_major=True, n_free=F)
-    k4_launches = lba_cuda.build_system.launches - k0
+    k4_launches = launches("lba_build") - k0
     b = optim.local_bundle_adjustment(wprob, winv, K, bf, cam_major=False, n_free=F)
-    if lba_cuda.build_system.launches - k0 != k4_launches or k4_launches < 2:
+    if launches("lba_build") - k0 != k4_launches or k4_launches < 2:
         raise AssertionError(f"K4 launches: {k4_launches} for cam_major=True, "
-                             f"{lba_cuda.build_system.launches - k0 - k4_launches} ragged")
+                             f"{launches('lba_build') - k0 - k4_launches} ragged")
     lerr = _pose_err(a.cam_T, b.cam_T)
     if not lerr < LBA_LAYOUT_TOL:
         raise AssertionError(f"local_bundle_adjustment layouts differ by {lerr}")
@@ -2756,16 +2759,16 @@ def leftovers_path(cfg, main_keep, k4_window, dev):
     cprob = optim.BAProblem(*(t.cpu() for t in wprob))
     K, bf = cfg.K, cfg.bf
     calls = []
-    k0 = lba_cuda.build_system.launches
+    k0 = launches("lba_build")
     lba_cuda.build_system.record = calls
     try:
         res = optim.local_bundle_adjustment(wprob, winv, K, bf, cam_major=True, n_free=F)
     finally:
         lba_cuda.build_system.record = None
     _sync(dev)
-    launches = lba_cuda.build_system.launches - k0
-    if launches < 1 or launches != len(calls):
-        raise AssertionError(f"local BA: {launches} K4 launches, {len(calls)} recorded")
+    n_k4 = launches("lba_build") - k0
+    if n_k4 < 1 or n_k4 != len(calls):
+        raise AssertionError(f"local BA: {n_k4} K4 launches, {len(calls)} recorded")
     ratios = [k4_sum_bound(k4_abs_sums(wprob, winv, F, cT, pt, ok, rb, K, bf),
                            optim.build_system_plain(wprob, winv, F, cT, pt, ok, rb, K, bf),
                            sk, f"K4 in local_bundle_adjustment, launch {i}")
@@ -2776,7 +2779,7 @@ def leftovers_path(cfg, main_keep, k4_window, dev):
         raise AssertionError(f"local BA: card poses {err} from the CPU's")
     out["local_ba"] = dict(
         window=[wprob.cam_T.shape[0], wprob.pts.shape[0], int(wprob.obs_valid.sum())],
-        k4_launches=launches, worst_sum_ratio=max(ratios), pose_err_vs_cpu=err,
+        k4_launches=n_k4, worst_sum_ratio=max(ratios), pose_err_vs_cpu=err,
         pts_max_abs_diff_vs_cpu=float((res.pts.cpu() - ref.pts).abs().max()),
         inlier_flags_differing_vs_cpu=int((res.obs_inlier.cpu() != ref.obs_inlier).sum()))
     print(f"# leftovers: local_bundle_adjustment on the main path's last window: "

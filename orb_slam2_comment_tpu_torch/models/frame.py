@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from orb_slam2_comment_tpu_torch.ops import orb, stereo
+from orb_slam2_comment_tpu_torch.utils import trace
 from orb_slam2_comment_tpu_torch.utils.config import SlamConfig
 
 
@@ -78,7 +79,8 @@ def rgbd_features(image: torch.Tensor, depth_map: torch.Tensor, cfg: SlamConfig)
     """Extraction + depth per keypoint + undistortion (a host-path RGB-D
     frame; the pipeline splits it into stage A and rgbd_depth). Returns
     (feats, uright, depth, pyramid)."""
-    feats, pyr, _ = orb._extract_impl(image, cfg.orb, (cfg.height, cfg.width))
+    with trace.span("extract"):
+        feats, pyr, _ = orb._extract_impl(image, cfg.orb, (cfg.height, cfg.width))
     return rgbd_depth(feats, depth_map, cfg) + (pyr,)
 
 
@@ -98,12 +100,15 @@ def stereo_features(image_l: torch.Tensor, image_r: torch.Tensor, cfg: SlamConfi
     and undistortion (the front half of tracking._frame_step_stereo).
     Returns (feats, uright, depth, left pyramid)."""
     shape = (cfg.height, cfg.width)
-    feats_l, pyr_l, stack_l = orb._extract_impl(image_l, cfg.orb, shape)
-    feats_r, _, stack_r = orb._extract_impl(image_r, cfg.orb, shape)
-    uright, depth = stereo.stereo_match(
-        feats_l, feats_r, stack_l, stack_r, cfg.orb.level_sizes(*shape), tuple(cfg.orb.scales),
-        cfg.bf, min_z=cfg.baseline, n_levels=cfg.n_levels,
-        th_stereo=min(75.0 * cfg.match_th_scale, 100.0))
+    with trace.span("extract"):
+        feats_l, pyr_l, stack_l = orb._extract_impl(image_l, cfg.orb, shape)
+    with trace.span("extract"):
+        feats_r, _, stack_r = orb._extract_impl(image_r, cfg.orb, shape)
+    with trace.span("stereo_match"):
+        uright, depth = stereo.stereo_match(
+            feats_l, feats_r, stack_l, stack_r, cfg.orb.level_sizes(*shape),
+            tuple(cfg.orb.scales), cfg.bf, min_z=cfg.baseline, n_levels=cfg.n_levels,
+            th_stereo=min(75.0 * cfg.match_th_scale, 100.0))
     feats_l = feats_l.replace(xy=undistort_points(feats_l.xy, cfg))
     return feats_l, uright, depth, pyr_l
 
@@ -112,7 +117,8 @@ def mono_features(image: torch.Tensor, cfg: SlamConfig, ocfg: Optional[orb.ORBCo
     """Extraction (with `ocfg`, cfg.orb by default) and undistortion; no
     feature has a right u or a depth. Returns (feats, uright, depth,
     pyramid)."""
-    feats, pyr, _ = orb._extract_impl(image, ocfg or cfg.orb, (cfg.height, cfg.width))
+    with trace.span("extract"):
+        feats, pyr, _ = orb._extract_impl(image, ocfg or cfg.orb, (cfg.height, cfg.width))
     none = torch.full(feats.valid.shape, -1.0, dtype=torch.float32, device=image.device)
     return feats.replace(xy=undistort_points(feats.xy, cfg)), none, none.clone(), pyr
 

@@ -34,6 +34,7 @@ from orb_slam2_comment_tpu_torch.ops import geometry as geo
 from orb_slam2_comment_tpu_torch.ops import matching, optim
 from orb_slam2_comment_tpu_torch.ops.orb import FrameFeatures
 from orb_slam2_comment_tpu_torch.ops.scatter import const, scalar, scatter_set, segment_sum, top_k
+from orb_slam2_comment_tpu_torch.utils import trace
 from orb_slam2_comment_tpu_torch.utils.config import MONOCULAR, SlamConfig
 
 # the reference's former fixed window and neighbour capacities, public
@@ -969,6 +970,11 @@ def machine_phase_count(cfg: SlamConfig) -> int:
     return len(_phase_list(cfg))
 
 
+# the tracer's span of each phase kind
+_PHASE_SPANS = {k: "mapper." + k for k in (
+    "start", "tri", "fuse", "refresh", "ba1", "ba2", "ba3", "kfcull")}
+
+
 def _ba_prob_from_machine(m: MapState, mp: MapperMachine, cfg: SlamConfig):
     """Rebuild the window's observation arrays from the frozen
     (cam_ids, pt_ids) selection and the current map; poses and points come
@@ -996,66 +1002,68 @@ def _load_carry(mp: MapperMachine):
 def mapper_machine_step(m: MapState, n_pts: torch.Tensor, obs_counts: torch.Tensor,
                         mp: MapperMachine, cfg: SlamConfig):
     """Run ONE phase of the chunked mapper and advance the phase counter
-    (idle stays idle). Returns (m, n_pts, obs_counts, mp)."""
+    (idle stays idle), in a `mapper.<phase>` span. Returns (m, n_pts,
+    obs_counts, mp)."""
     phases = _phase_list(cfg)
     if mp.phase <= 0:
         return m, n_pts, obs_counts, mp
     spec = phases[min(mp.phase, len(phases)) - 1]
-    kind = spec[0]
-    dev = m.kf_obs.device
-    inv_s2 = _inv_sigma2(cfg, dev)
-    n_free = min(cfg.ba_free_kfs, cfg.max_keyframes)
-    its1 = C.LOCAL_BA_ITS_PHASE1
-    its2 = C.LOCAL_BA_ITS_PHASE2
-    its2a = (its2 + 1) // 2
-    kf = mp.kf
-    if kind == "start":
-        m = cull_points(m, kf)
-        w = ms.covisibility_weights(m, kf)
-        nbw, nbi = top_k(w, mp.nbw.shape[0])
-        fbi = _fuse_targets(m, kf, min(cfg.fuse_neighbors, cfg.max_keyframes),
-                            C.FUSE_EXT_SLOTS)
-        mp = mp.replace(nbw=nbw.to(torch.int32), nbi=nbi.to(torch.int32), fbi=fbi)
-    elif kind == "tri":
-        lo, hi = spec[1], spec[2]
-        nbw = mp.nbw.tolist()
-        nbi = mp.nbi.tolist()
-        for i in range(lo, hi):
-            if nbw[i] >= C.COVIS_MIN_WEIGHT and kf > 0:
-                m, n_new = triangulate_with_neighbor(m, kf, nbi[i], n_pts, cfg)
-                n_pts = n_pts + n_new
-    elif kind == "fuse":
-        lo, hi = spec[1], spec[2]
-        obs_counts = ms.point_observation_counts(m)
-        m = fuse_targets_scan(m, kf, mp.fbi[lo:hi].tolist(), cfg, obs_counts)
-    elif kind == "refresh":
-        m = refresh_point_stats_for_kf(m, kf, cfg)
-    elif kind == "ba1":
-        prob, cam_ids, pt_ids = build_ba_window(m, kf, cfg)
-        carry = optim.lba_init(prob, inv_s2, cfg.K, cfg.bf)
-        carry = optim.lba_iterate(prob, inv_s2, carry, cfg.K, cfg.bf, its1, robust=True,
-                                  n_free=n_free)
-        mp = _store_carry(mp, carry).replace(ba_cam_ids=cam_ids, ba_pt_ids=pt_ids,
-                                             ba_cam_fixed=prob.cam_fixed)
-    elif kind == "ba2":
-        prob = _ba_prob_from_machine(m, mp, cfg)
-        carry = optim.lba_prune(prob, inv_s2, _load_carry(mp), cfg.K, cfg.bf)
-        carry = optim.lba_iterate(prob, inv_s2, carry, cfg.K, cfg.bf, its2a, robust=False,
-                                  n_free=n_free)
-        mp = _store_carry(mp, carry)
-    elif kind == "ba3":
-        prob = _ba_prob_from_machine(m, mp, cfg)
-        carry = optim.lba_iterate(prob, inv_s2, _load_carry(mp), cfg.K, cfg.bf,
-                                  its2 - its2a, robust=False, n_free=n_free)
-        res = optim.lba_finalize(prob, inv_s2, carry, cfg.K, cfg.bf)
-        m = scatter_ba_result(m, res, prob, mp.ba_cam_ids, mp.ba_pt_ids)
-        m = cull_orphans(m)
-    elif kind == "kfcull":
-        m = cull_keyframes(m, kf, cfg)
-    if mp.phase >= len(phases):
-        # the pass is complete: refresh the cached observation counts
-        obs_counts = ms.point_observation_counts(m)
-        nxt = 0
-    else:
-        nxt = mp.phase + 1
-    return m, n_pts, obs_counts, mp.replace(phase=nxt)
+    with trace.span(_PHASE_SPANS[spec[0]]):
+        kind = spec[0]
+        dev = m.kf_obs.device
+        inv_s2 = _inv_sigma2(cfg, dev)
+        n_free = min(cfg.ba_free_kfs, cfg.max_keyframes)
+        its1 = C.LOCAL_BA_ITS_PHASE1
+        its2 = C.LOCAL_BA_ITS_PHASE2
+        its2a = (its2 + 1) // 2
+        kf = mp.kf
+        if kind == "start":
+            m = cull_points(m, kf)
+            w = ms.covisibility_weights(m, kf)
+            nbw, nbi = top_k(w, mp.nbw.shape[0])
+            fbi = _fuse_targets(m, kf, min(cfg.fuse_neighbors, cfg.max_keyframes),
+                                C.FUSE_EXT_SLOTS)
+            mp = mp.replace(nbw=nbw.to(torch.int32), nbi=nbi.to(torch.int32), fbi=fbi)
+        elif kind == "tri":
+            lo, hi = spec[1], spec[2]
+            nbw = mp.nbw.tolist()
+            nbi = mp.nbi.tolist()
+            for i in range(lo, hi):
+                if nbw[i] >= C.COVIS_MIN_WEIGHT and kf > 0:
+                    m, n_new = triangulate_with_neighbor(m, kf, nbi[i], n_pts, cfg)
+                    n_pts = n_pts + n_new
+        elif kind == "fuse":
+            lo, hi = spec[1], spec[2]
+            obs_counts = ms.point_observation_counts(m)
+            m = fuse_targets_scan(m, kf, mp.fbi[lo:hi].tolist(), cfg, obs_counts)
+        elif kind == "refresh":
+            m = refresh_point_stats_for_kf(m, kf, cfg)
+        elif kind == "ba1":
+            prob, cam_ids, pt_ids = build_ba_window(m, kf, cfg)
+            carry = optim.lba_init(prob, inv_s2, cfg.K, cfg.bf)
+            carry = optim.lba_iterate(prob, inv_s2, carry, cfg.K, cfg.bf, its1, robust=True,
+                                      n_free=n_free)
+            mp = _store_carry(mp, carry).replace(ba_cam_ids=cam_ids, ba_pt_ids=pt_ids,
+                                                 ba_cam_fixed=prob.cam_fixed)
+        elif kind == "ba2":
+            prob = _ba_prob_from_machine(m, mp, cfg)
+            carry = optim.lba_prune(prob, inv_s2, _load_carry(mp), cfg.K, cfg.bf)
+            carry = optim.lba_iterate(prob, inv_s2, carry, cfg.K, cfg.bf, its2a, robust=False,
+                                      n_free=n_free)
+            mp = _store_carry(mp, carry)
+        elif kind == "ba3":
+            prob = _ba_prob_from_machine(m, mp, cfg)
+            carry = optim.lba_iterate(prob, inv_s2, _load_carry(mp), cfg.K, cfg.bf,
+                                      its2 - its2a, robust=False, n_free=n_free)
+            res = optim.lba_finalize(prob, inv_s2, carry, cfg.K, cfg.bf)
+            m = scatter_ba_result(m, res, prob, mp.ba_cam_ids, mp.ba_pt_ids)
+            m = cull_orphans(m)
+        elif kind == "kfcull":
+            m = cull_keyframes(m, kf, cfg)
+        if mp.phase >= len(phases):
+            # the pass is complete: refresh the cached observation counts
+            obs_counts = ms.point_observation_counts(m)
+            nxt = 0
+        else:
+            nxt = mp.phase + 1
+        return m, n_pts, obs_counts, mp.replace(phase=nxt)

@@ -24,7 +24,6 @@ failure dump is left out.
 from __future__ import annotations
 
 import collections
-import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -40,12 +39,8 @@ from orb_slam2_comment_tpu_torch.models.tracking import _Pull
 from orb_slam2_comment_tpu_torch.ops import geometry as geo
 from orb_slam2_comment_tpu_torch.ops import matching, optim, ransac
 from orb_slam2_comment_tpu_torch.ops.scatter import const, scatter_set, top_k
+from orb_slam2_comment_tpu_torch.utils import trace
 from orb_slam2_comment_tpu_torch.utils.config import MONOCULAR, SlamConfig
-
-
-def _loop_dbg(msg):
-    if os.environ.get("LOOP_DEBUG", "") not in ("", "0"):
-        print(msg, flush=True)
 
 
 def _clip(ids, n: int) -> torch.Tensor:
@@ -355,7 +350,7 @@ class LoopCloser:
     # pump_background(); aborted by a new correction, a compaction or reset
     _bg: object = None   # [prob, inv_s2, carry, it, snap_kf, snap_pt, epoch, plans]
     # queued detections: (kf_id, packed device buffer, its transfer (done() /
-    # result()), pump count at queueing)
+    # result()), pump count at queueing, the keyframe's frame id)
     _detect_q: object = field(default_factory=collections.deque)
     _pump_count: int = 0
 
@@ -397,18 +392,21 @@ class LoopCloser:
         if self.tracker.n_kfs < 5 or kf_id - self.last_loop_kf < C.LOOP_MIN_KFS_GAP:
             self.tracker.set_kf_erasable(kf_id)
             return False
-        if self.db.sparse:
-            sc, cm = self.db.scores_device(kf_id=kf_id)
-        else:
-            sc, cm = scores_dense(self.db.bow, self.db.valid, self.db.bow[kf_id])
-        packed = _detect_pack(self.tracker.map, sc, cm)
-        if self.tracker.cfg.fused_tracking:
-            # rides the next stats transfer (one transfer for both)
-            fut = self.tracker.enqueue_side(packed.reshape(-1), packed.shape)
-        else:
-            # the staged mode ships no stats: a transfer of its own
-            fut = _Pull(packed)
-        self._detect_q.append((kf_id, packed, fut, self._pump_count))
+        with trace.span("detect.queue"):
+            if self.db.sparse:
+                sc, cm = self.db.scores_device(kf_id=kf_id)
+            else:
+                sc, cm = scores_dense(self.db.bow, self.db.valid, self.db.bow[kf_id])
+            packed = _detect_pack(self.tracker.map, sc, cm)
+            if self.tracker.cfg.fused_tracking:
+                # rides the next stats transfer (one transfer for both)
+                fut = self.tracker.enqueue_side(packed.reshape(-1), packed.shape)
+            else:
+                # the staged mode ships no stats: a transfer of its own
+                fut = _Pull(packed, "side")
+            # the tracker's newest keyframe frame is this keyframe's
+            self._detect_q.append((kf_id, packed, fut, self._pump_count,
+                                   self.tracker.last_kf_frame_id))
         return self._drain_detect(force=False)
 
     def _drain_detect(self, force: bool) -> bool:
@@ -417,18 +415,19 @@ class LoopCloser:
         a loop closed."""
         closed = False
         while self._detect_q:
-            kf_id, packed, fut, born = self._detect_q[0]
+            kf_id, packed, fut, born, frame_id = self._detect_q[0]
             if not force and (self._pump_count - born < 4 or not fut.done()):
                 break
             self._detect_q.popleft()
             self.n_detections += 1
-            # harvested -> the KF becomes erasable again (KeyFrame::SetErase)
-            self.tracker.set_kf_erasable(kf_id)
-            P = fut.result()
-            kmax = P.shape[0]
-            closed |= self._finish_detect(kf_id, P[:, :kmax].astype(np.int32), P[:, kmax],
-                                          P[:, kmax + 1].astype(np.int32),
-                                          P[:, kmax + 2] > 0.5)
+            with trace.span("detect.harvest", frame_id):
+                # harvested -> the KF becomes erasable again (KeyFrame::SetErase)
+                self.tracker.set_kf_erasable(kf_id)
+                P = fut.result()
+                kmax = P.shape[0]
+                closed |= self._finish_detect(kf_id, P[:, :kmax].astype(np.int32),
+                                              P[:, kmax], P[:, kmax + 1].astype(np.int32),
+                                              P[:, kmax + 2] > 0.5)
         return closed
 
     def _finish_detect(self, kf_id, W, scores_all, common_all, kf_valid) -> bool:
@@ -444,15 +443,18 @@ class LoopCloser:
             return False
         cands = [c for c in cands if live[c]]
         for cand in cands:
-            ok, S_cur_cand = self._compute_sim3(kf_id, cand)
+            with trace.span("loop.sim3"):
+                ok, S_cur_cand = self._compute_sim3(kf_id, cand)
             if ok:
                 break
         else:
             return False
         print(f"Loop detected! kf={kf_id} <-> {cand}", flush=True)
-        self._correct_loop(kf_id, cand, S_cur_cand)
+        with trace.span("loop.correct"):
+            self._correct_loop(kf_id, cand, S_cur_cand)
         self.last_loop_kf = kf_id
         self.n_loops_closed += 1
+        trace.count("loop.closed")
         # queued snapshots predate the correction: drop them, releasing holds
         for q_kf, *_ in self._detect_q:
             self.tracker.set_kf_erasable(q_kf)
@@ -470,7 +472,7 @@ class LoopCloser:
             self.tracker.map, kf_id, min_score, W=W, scores_common=(scores_all, common_all),
             kf_valid=kf_valid)
         if not candidates:
-            _loop_dbg(f"[loop] kf={kf_id} minScore={min_score:.3f} candidates=0")
+            trace.count("loop.no_candidates")
             self.consistent_groups = []
             return None
         # covisibility consistency across 3 detections (src/LoopClosing.cc:152-211)
@@ -485,8 +487,6 @@ class LoopCloser:
             if count >= C.LOOP_CONSISTENCY_TH:
                 enough.append(int(c))
         self.consistent_groups = new_groups
-        _loop_dbg(f"[loop] kf={kf_id} minScore={min_score:.3f} cands={candidates} "
-                  f"consistency={[c for _, c in new_groups]} -> {enough}")
         return enough
 
     def _compute_sim3(self, kf_id: int, cand: int):
@@ -496,14 +496,12 @@ class LoopCloser:
         m = self.tracker.map
         k1, k2 = int(kf_id), int(cand)
         scalars, res_idx, pair_ok, S12_r, inl_r = _sim3_gate(m, k1, k2, cfg)
-        n_bow, r_ok, r_ninl, n_raw = scalars.tolist()
+        n_bow, r_ok, _, _ = scalars.tolist()
         if n_bow < C.LOOP_MIN_MATCHES_BOW:
-            _loop_dbg(f"[loop] sim3 kf={kf_id}<->{cand}: bow pairs {int(n_bow)} "
-                      f"< {C.LOOP_MIN_MATCHES_BOW} (raw matches {int(n_raw)})")
+            trace.count("loop.sim3_few_bow_pairs")
             return False, None
         if not r_ok > 0:
-            _loop_dbg(f"[loop] sim3 kf={kf_id}<->{cand}: RANSAC failed "
-                      f"({int(n_bow)} pairs, best {int(r_ninl)} inl)")
+            trace.count("loop.sim3_ransac_failed")
             return False, None
         pmax = cfg.max_points
         p1, obs2 = m.kf_obs[k1], m.kf_obs[k2]
@@ -527,13 +525,11 @@ class LoopCloser:
                                    fix_scale=cfg.sensor != MONOCULAR)
         n_opt = int(ores.n_inliers)
         if n_opt < C.LOOP_MIN_INLIERS_SIM3:
-            _loop_dbg(f"[loop] sim3 kf={kf_id}<->{cand}: opt inliers {n_opt} "
-                      f"< {C.LOOP_MIN_INLIERS_SIM3}")
+            trace.count("loop.sim3_few_inliers")
             return False, None
         n_total = int(_count_loop_matches(m, k1, k2, ores.S12, union_ok & ores.inliers, cfg))
         if n_total < C.LOOP_MIN_TOTAL_MATCHES:
-            _loop_dbg(f"[loop] sim3 kf={kf_id}<->{cand}: total matches {n_total} "
-                      f"< {C.LOOP_MIN_TOTAL_MATCHES}")
+            trace.count("loop.sim3_few_matches")
             return False, None
         return True, ores.S12
 
@@ -635,12 +631,13 @@ class LoopCloser:
             return False
         prob, inv_s2, carry, it, _, _, _, plans = self._bg
         cfg = self.cfg
-        self._bg[2] = optim.gba_chunk(prob, inv_s2, carry, it, cfg.K, cfg.bf, n_iters=1,
-                                      plans=plans)
-        self._bg[3] = it + 1
-        if it + 1 >= C.GBA_ITERS:
-            self._apply_background()
-            return False
+        with trace.span("gba.chunk", -1):
+            self._bg[2] = optim.gba_chunk(prob, inv_s2, carry, it, cfg.K, cfg.bf, n_iters=1,
+                                          plans=plans)
+            self._bg[3] = it + 1
+            if it + 1 >= C.GBA_ITERS:
+                self._apply_background()
+                return False
         return True
 
     def finish_background(self):

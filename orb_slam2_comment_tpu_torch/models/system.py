@@ -49,6 +49,7 @@ from orb_slam2_comment_tpu_torch.models.tracking import (
 from orb_slam2_comment_tpu_torch.ops import bow as bow_mod
 from orb_slam2_comment_tpu_torch.ops import geometry as geo
 from orb_slam2_comment_tpu_torch.ops import optim, ransac
+from orb_slam2_comment_tpu_torch.utils import trace
 from orb_slam2_comment_tpu_torch.utils import trajectory as traj
 from orb_slam2_comment_tpu_torch.utils.config import (
     MONOCULAR, RGBD, STEREO, SlamConfig, resolve_device)
@@ -181,11 +182,12 @@ class System:
         if self.db is None:
             return
         m = self.tracker.map
-        self.db.add(kf_id, m.kf_desc[kf_id], m.kf_feat_valid[kf_id])
-        if self._gate_active:
-            # host-path keyframes get their node-gate groups here; device
-            # keyframes already carry the same row
-            self.tracker.set_kf_groups(kf_id, self.db.groups[kf_id])
+        with trace.span("db.add"):
+            self.db.add(kf_id, m.kf_desc[kf_id], m.kf_feat_valid[kf_id])
+            if self._gate_active:
+                # host-path keyframes get their node-gate groups here; device
+                # keyframes already carry the same row
+                self.tracker.set_kf_groups(kf_id, self.db.groups[kf_id])
         if self.loop_closer is not None:
             self.loop_closer.process(kf_id)
 
@@ -218,10 +220,11 @@ class System:
     def _track(self, sensor: str, entry: str, *images_and_ts):
         if self.cfg.sensor != sensor:
             raise ValueError(f"a {sensor} frame for a {self.cfg.sensor!r} system")
-        self._maybe_auto_reset()   # may replace the tracker
-        out = getattr(self.tracker, entry)(self.frame_id, images_and_ts[-1],
-                                           *images_and_ts[:-1])
-        self._pump_background()
+        with trace.span("call", self.frame_id):
+            self._maybe_auto_reset()   # may replace the tracker
+            out = getattr(self.tracker, entry)(self.frame_id, images_and_ts[-1],
+                                               *images_and_ts[:-1])
+            self._pump_background()
         self.frame_id += 1
         return out
 

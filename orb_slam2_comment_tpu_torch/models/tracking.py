@@ -71,6 +71,7 @@ from orb_slam2_comment_tpu_torch.models.map_state import MapState
 from orb_slam2_comment_tpu_torch.ops import bow, matching, optim, orb
 from orb_slam2_comment_tpu_torch.ops import geometry as geo
 from orb_slam2_comment_tpu_torch.ops.scatter import const, scalar, scatter_set, top_k
+from orb_slam2_comment_tpu_torch.utils import trace
 from orb_slam2_comment_tpu_torch.utils.config import (
     MONOCULAR, RGBD, STEREO, SlamConfig, resolve_device)
 
@@ -522,19 +523,25 @@ OUT_LEN = N_STATS + 38
 
 
 def _frame_step_core(m: MapState, ds: DeviceTrackState, feats, uright, depth,
-                     frame_id: int, timestamp: float, since_reloc: int, cfg: SlamConfig):
+                     frame_id: int, timestamp: float, since_reloc: int, cfg: SlamConfig,
+                     depth_map=None):
     """Track + keyframe policy + keyframe creation, then, with the chunked
     mapper, one mapper chunk and on-device point compaction (without it the
-    keyframe callbacks map a new keyframe once the frame resolves).
+    keyframe callbacks map a new keyframe once the frame resolves). With
+    `depth_map` (RGB-D stage B) the depth per keypoint, right u and
+    undistortion come first, from the extracted `feats`.
     Returns (m', ds', out[OUT_LEN])."""
     chunked = cfg.chunked_mapper
-    T_pred = _apply_velocity(ds.velocity, ds.T_last) if ds.have_vel else ds.T_last
-    m, Tcw, assoc, stats = _track_core(
-        m, feats, uright, depth, T_pred, ds.T_last, ds.have_vel, ds.last_assoc, ds.ref_kf,
-        frame_id, ds.last_kf_frame_id, ds.n_kfs, cfg, obs_counts=ds.obs_counts,
-        voc_gate=(ds.voc_children, ds.voc_signed),
-        mapper_idle=ds.mp.phase == 0 if chunked else None)
-    s = stats.tolist()   # the per-frame policy read
+    with trace.span("track", frame_id):
+        if depth_map is not None:
+            feats, uright, depth = rgbd_depth(feats, depth_map, cfg)
+        T_pred = _apply_velocity(ds.velocity, ds.T_last) if ds.have_vel else ds.T_last
+        m, Tcw, assoc, stats = _track_core(
+            m, feats, uright, depth, T_pred, ds.T_last, ds.have_vel, ds.last_assoc, ds.ref_kf,
+            frame_id, ds.last_kf_frame_id, ds.n_kfs, cfg, obs_counts=ds.obs_counts,
+            voc_gate=(ds.voc_children, ds.voc_signed),
+            mapper_idle=ds.mp.phase == 0 if chunked else None)
+        s = stats.tolist()   # the per-frame policy read
     tracked = s[S_TRACKED] > 0
     # recently-relocalized frames need the stricter inlier floor
     if since_reloc < int(cfg.fps) and s[S_N_INL] < C.TRACK_LOCAL_MAP_MIN_INLIERS_RECENT_RELOC:
@@ -546,14 +553,16 @@ def _frame_step_core(m: MapState, ds: DeviceTrackState, feats, uright, depth,
     slot = ds.n_kfs
 
     if need_kf:
-        # the chunked mapper's keyframes carry their node ids from creation;
-        # the monolithic path's get them from the database callback
-        groups = bow.group_ids(ds.voc_children, ds.voc_signed, feats.desc, feats.valid,
-                               cfg.voc_levels) if chunked else None
-        m, n_created, kf_obs_row = _create_kf_core(
-            m, slot, ds.n_pts, frame_id, timestamp, Tcw, feats, uright, depth, assoc, ref1,
-            cfg, groups=groups)
-        obs_counts2 = ms.point_observation_counts(m)
+        with trace.span("kf_create", frame_id):
+            # the chunked mapper's keyframes carry their node ids from
+            # creation; the monolithic path's get them from the database
+            # callback
+            groups = bow.group_ids(ds.voc_children, ds.voc_signed, feats.desc, feats.valid,
+                                   cfg.voc_levels) if chunked else None
+            m, n_created, kf_obs_row = _create_kf_core(
+                m, slot, ds.n_pts, frame_id, timestamp, Tcw, feats, uright, depth, assoc,
+                ref1, cfg, groups=groups)
+            obs_counts2 = ms.point_observation_counts(m)
         assoc_after = kf_obs_row
         ref2 = slot
         n_pts2 = ds.n_pts + n_created
@@ -576,10 +585,11 @@ def _frame_step_core(m: MapState, ds: DeviceTrackState, feats, uright, depth,
         pmax = cfg.max_points
         n_live = torch.sum(m.pt_valid.to(torch.int32))
         if bool((n_pts2 >= int(pmax * 0.85)) & (n_live * 2 < n_pts2)):
-            m, n_live2, remap = ms.compact_points(m)
-            la_next = torch.where(la_next >= 0, remap[_clip(la_next, pmax)], -1)
-            n_pts2 = n_live2.to(torch.int32)
-            obs_counts2 = ms.point_observation_counts(m)
+            with trace.span("compact", frame_id):
+                m, n_live2, remap = ms.compact_points(m)
+                la_next = torch.where(la_next >= 0, remap[_clip(la_next, pmax)], -1)
+                n_pts2 = n_live2.to(torch.int32)
+                obs_counts2 = ms.point_observation_counts(m)
             compacted = True
 
     ds2 = DeviceTrackState(
@@ -632,36 +642,42 @@ def _track_stage_rgbd_core(m: MapState, ds: DeviceTrackState, feats, depth_map, 
     """Stage B of the RGB-D pipeline: depth per keypoint sampled on the
     device from the full depth map (the map rides to the device with the
     image), right u, undistortion, then _frame_step_core."""
-    feats, uright, depth = rgbd_depth(feats, depth_map, cfg)
-    return _frame_step_core(m, ds, feats, uright, depth, frame_id, timestamp, since_reloc, cfg)
+    return _frame_step_core(m, ds, feats, None, None, frame_id, timestamp, since_reloc, cfg,
+                            depth_map=depth_map)
 
 
 # ---------------------------------------------------------------------------
 # the asynchronous pipeline's transfers
 # ---------------------------------------------------------------------------
 
-# waits on a transfer that had not landed (a stats batch, a detection pack
-# or a staging buffer); torch's sync debug mode does not see event waits
+# waits on a transfer that had not landed, all sites together (each site
+# counts in trace's `transfer_wait.<site>`); torch's sync debug mode does
+# not see event waits
 transfer_waits = 0
 
 
-def _wait(event):
+def _wait(event, site: str):
+    """Wait for a transfer's event. site: `stats` (a stats batch), `side`
+    (a batch carrying detection packs, or a pack of its own) or `staging`
+    (a pinned upload buffer)."""
     global transfer_waits
     if not event.query():
         transfer_waits += 1
-        event.synchronize()
+        trace.count("transfer_wait." + site)
+        with trace.span("transfer_wait." + site):
+            event.synchronize()
 
 
 class _Pull:
     """A device-to-host copy in flight, future-like (the reference's pull
     pool future): on the card a non-blocking copy into pinned host memory
     with an event after it, the buffer kept until the copy is read; a CPU
-    tensor is ready at once."""
+    tensor is ready at once. `site` names its waits (`_wait`)."""
 
-    __slots__ = ("_host", "_event")
+    __slots__ = ("_host", "_event", "_site")
 
-    def __init__(self, t: torch.Tensor):
-        self._host, self._event = t, None
+    def __init__(self, t: torch.Tensor, site: str):
+        self._host, self._event, self._site = t, None, site
         if t.is_cuda:
             self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
             self._host.copy_(t, non_blocking=True)
@@ -673,7 +689,7 @@ class _Pull:
 
     def result(self) -> np.ndarray:
         if self._event is not None:
-            _wait(self._event)
+            _wait(self._event, self._site)
         return self._host.numpy()
 
 
@@ -886,67 +902,70 @@ class Tracker:
                                   torch.cuda.Stream(self.device))
         return self._side_streams
 
-    def _upload(self, a, kind: str) -> _Upload:
+    def _upload(self, a, kind: str, frame_id: int) -> _Upload:
         """Start a frame input's way to the device. A tensor goes straight
         in; a host array is copied into a ring of pinned staging buffers
         and from there on the copy stream (on the CPU: copied at once)."""
-        if isinstance(a, torch.Tensor):
-            return _Upload(a.to(self.device), None, kind)
-        a = np.ascontiguousarray(a)
-        if a.dtype == np.uint16:
-            a = a.view(np.int16)   # torch's uint16 support is thin
-        elif a.dtype == np.float64 and kind == "depth":
-            a = a.astype(np.float32)
-        if self.device.type != "cuda":
-            return _Upload(torch.from_numpy(a.copy()), None, kind)
-        ring = self._staging.setdefault((a.shape, a.dtype.str), collections.deque())
-        if len(ring) < self.UPLOAD_RING:
-            host = torch.from_numpy(a).pin_memory()
-        else:
-            host, ev = ring.popleft()
-            _wait(ev)   # its copy left frames ago
-            host.numpy()[...] = a
-        cs = self._streams()[1]
-        with torch.cuda.stream(cs):
-            t = host.to(self.device, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record(cs)
-        ring.append((host, ev))
-        return _Upload(t, ev, kind)
+        with trace.span("upload", frame_id):
+            if isinstance(a, torch.Tensor):
+                return _Upload(a.to(self.device), None, kind)
+            a = np.ascontiguousarray(a)
+            if a.dtype == np.uint16:
+                a = a.view(np.int16)   # torch's uint16 support is thin
+            elif a.dtype == np.float64 and kind == "depth":
+                a = a.astype(np.float32)
+            if self.device.type != "cuda":
+                return _Upload(torch.from_numpy(a.copy()), None, kind)
+            ring = self._staging.setdefault((a.shape, a.dtype.str), collections.deque())
+            if len(ring) < self.UPLOAD_RING:
+                host = torch.from_numpy(a).pin_memory()
+            else:
+                host, ev = ring.popleft()
+                _wait(ev, "staging")   # its copy left frames ago
+                host.numpy()[...] = a
+            cs = self._streams()[1]
+            with torch.cuda.stream(cs):
+                t = host.to(self.device, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(cs)
+            ring.append((host, ev))
+            return _Upload(t, ev, kind)
 
-    def _extract_async(self, image: _Upload):
+    def _extract_async(self, image: _Upload, frame_id: int):
         """Stage A of one frame: on the card on the extraction stream, with
         an event after it. Returns (feats, event or None)."""
-        if self.device.type != "cuda":
-            return _extract_stage(image.take(), self.cfg), None
-        xs = self._streams()[0]
-        with torch.cuda.stream(xs):
-            feats = _extract_stage(image.take(), self.cfg)
-            ev = torch.cuda.Event()
-            ev.record(xs)
-        return feats, ev
+        with trace.span("extract", frame_id):
+            if self.device.type != "cuda":
+                return _extract_stage(image.take(), self.cfg), None
+            xs = self._streams()[0]
+            with torch.cuda.stream(xs):
+                feats = _extract_stage(image.take(), self.cfg)
+                ev = torch.cuda.Event()
+                ev.record(xs)
+            return feats, ev
 
     def _finish_stageA_front(self):
         """Stage B of the oldest stage-A frame, on the current stream
         after its extraction."""
         fid, ts, feats, ev, depth = self._stageA.popleft()
-        if ev is not None:
-            s = torch.cuda.current_stream(self.device)
-            s.wait_event(ev)
-            for f in dataclasses.fields(feats):
-                getattr(feats, f.name).record_stream(s)   # made on the extraction stream
-        self.map, self.ds, out = _track_stage_rgbd_core(
-            self.map, self.ds, feats, depth.take(), fid, ts, fid - self.last_reloc_frame_id,
-            self.cfg)
-        self.n_pts_dev = self.ds.n_pts
-        self._enqueue_out(fid, ts, out)
+        with trace.span("frame_step", fid):
+            if ev is not None:
+                s = torch.cuda.current_stream(self.device)
+                s.wait_event(ev)
+                for f in dataclasses.fields(feats):
+                    getattr(feats, f.name).record_stream(s)   # made on the extraction stream
+            self.map, self.ds, out = _track_stage_rgbd_core(
+                self.map, self.ds, feats, depth.take(), fid, ts, fid - self.last_reloc_frame_id,
+                self.cfg)
+            self.n_pts_dev = self.ds.n_pts
+            self._enqueue_out(fid, ts, out)
 
     def _dispatch_rgbd_upload(self, fid: int, ts: float, image: _Upload, depth: _Upload):
         """Dispatch one RGB-D frame whose upload started a call earlier:
         its extraction, then the tracking stage of the stage-A head
         (fid - STAGE_A_LAG). B stages run strictly in frame order, so the
         tracking is the one-frame chain's."""
-        feats, ev = self._extract_async(image)
+        feats, ev = self._extract_async(image, fid)
         if self._stageA and len(self._stageA) >= self.STAGE_A_LAG:
             self._finish_stageA_front()
         self._stageA.append((fid, ts, feats, ev, depth))
@@ -957,11 +976,12 @@ class Tracker:
         return LazyTrackOutput(self, frame_id)
 
     def _dispatch_fused_now(self, step_fn, frame_id: int, ts: float, *uploads):
-        self.map, self.ds, out = step_fn(self.map, self.ds, *(u.take() for u in uploads),
-                                         frame_id, ts, frame_id - self.last_reloc_frame_id,
-                                         self.cfg)
-        self.n_pts_dev = self.ds.n_pts
-        self._enqueue_out(frame_id, ts, out)
+        with trace.span("frame_step", frame_id):
+            self.map, self.ds, out = step_fn(self.map, self.ds, *(u.take() for u in uploads),
+                                             frame_id, ts, frame_id - self.last_reloc_frame_id,
+                                             self.cfg)
+            self.n_pts_dev = self.ds.n_pts
+            self._enqueue_out(frame_id, ts, out)
 
     def _enqueue_out(self, fid: int, ts: float, out: torch.Tensor):
         self._pending.append((fid, ts, out))
@@ -981,7 +1001,7 @@ class Tracker:
         # a side buffer enqueued with no pending frame ships with empty stats
         while self._sideQ:
             a, shp, slot = self._sideQ.popleft()
-            slot._value = _Pull(a).result().reshape(shp)
+            slot._value = _Pull(a, "side").result().reshape(shp)
 
     def _ship_batch(self):
         """The pending out vectors, padded to STATS_BATCH rows as the
@@ -992,36 +1012,39 @@ class Tracker:
             return
         entries = list(self._pending)
         self._pending.clear()
-        outs = [e[2] for e in entries]
-        outs += [outs[-1]] * (self.STATS_BATCH - len(outs))
-        side_slots, sides = [], []
-        while self._sideQ and len(sides) < self.SIDE_SLOTS:
-            a, shp, slot = self._sideQ.popleft()
-            if sides and a.numel() != sides[0].numel():
-                self._sideQ.appendleft((a, shp, slot))
-                break
-            sides.append(a)
-            side_slots.append((shp, slot))
-        flat, meta = torch.stack(outs), None
-        if sides:
-            n_real = len(sides)
-            sides += [sides[-1]] * (self.SIDE_SLOTS - n_real)
-            meta = (len(outs), int(outs[0].shape[0]), int(sides[0].numel()), n_real)
-            flat = torch.cat([flat.reshape(-1)] + [x.to(torch.float32) for x in sides])
-        self._batchQ.append((entries, _Pull(flat), side_slots, meta))
+        with trace.span("ship", entries[-1][0]):
+            outs = [e[2] for e in entries]
+            outs += [outs[-1]] * (self.STATS_BATCH - len(outs))
+            side_slots, sides = [], []
+            while self._sideQ and len(sides) < self.SIDE_SLOTS:
+                a, shp, slot = self._sideQ.popleft()
+                if sides and a.numel() != sides[0].numel():
+                    self._sideQ.appendleft((a, shp, slot))
+                    break
+                sides.append(a)
+                side_slots.append((shp, slot))
+            flat, meta = torch.stack(outs), None
+            if sides:
+                n_real = len(sides)
+                sides += [sides[-1]] * (self.SIDE_SLOTS - n_real)
+                meta = (len(outs), int(outs[0].shape[0]), int(sides[0].numel()), n_real)
+                flat = torch.cat([flat.reshape(-1)] + [x.to(torch.float32) for x in sides])
+            self._batchQ.append((entries, _Pull(flat, "side" if sides else "stats"),
+                                 side_slots, meta))
 
     def _resolve_batch(self, entries, pull, side_slots=(), meta=None):
-        arr = pull.result()
-        if meta is not None:
-            B, out_len, S, n_real = meta
-            stats = arr[:B * out_len].reshape(B, out_len)
-            for i, (shp, slot) in enumerate(side_slots[:n_real]):
-                off = B * out_len + i * S
-                slot._value = arr[off:off + S].reshape(shp)
-        else:
-            stats = arr
-        for (fid, ts, _), row in zip(entries, stats):
-            self._resolve_entry(fid, ts, row)
+        with trace.span("resolve", entries[-1][0]):
+            arr = pull.result()
+            if meta is not None:
+                B, out_len, S, n_real = meta
+                stats = arr[:B * out_len].reshape(B, out_len)
+                for i, (shp, slot) in enumerate(side_slots[:n_real]):
+                    off = B * out_len + i * S
+                    slot._value = arr[off:off + S].reshape(shp)
+            else:
+                stats = arr
+            for (fid, ts, _), row in zip(entries, stats):
+                self._resolve_entry(fid, ts, row)
 
     def _flush_ready(self, max_batches: Optional[int] = None):
         """Resolve the shipped batches whose transfers have landed; wait
@@ -1043,14 +1066,15 @@ class Tracker:
 
     def _flush_upto(self, fid: int):
         """Dispatch, track, ship and resolve every frame up to fid."""
-        self._drain_upload(0)
-        while self._stageA and self._stageA[0][0] <= fid:
-            self._finish_stageA_front()
-        if self._pending and self._pending[0][0] <= fid:
-            self._ship_batch()
-        while self._batchQ and self._batchQ[0][0] and self._batchQ[0][0][0][0] <= fid:
-            entries, pull, side_slots, meta = self._batchQ.popleft()
-            self._resolve_batch(entries, pull, side_slots, meta)
+        with trace.span("flush", fid if 0 <= fid < 1 << 60 else -1):
+            self._drain_upload(0)
+            while self._stageA and self._stageA[0][0] <= fid:
+                self._finish_stageA_front()
+            if self._pending and self._pending[0][0] <= fid:
+                self._ship_batch()
+            while self._batchQ and self._batchQ[0][0] and self._batchQ[0][0][0][0] <= fid:
+                entries, pull, side_slots, meta = self._batchQ.popleft()
+                self._resolve_batch(entries, pull, side_slots, meta)
 
     def _flush_all(self):
         """Resolve every frame in the pipeline and pump the mapper to idle."""
@@ -1068,13 +1092,14 @@ class Tracker:
                 and not self.cfg.localization_only)
 
     def track_rgbd_arrays(self, frame_id: int, ts: float, image, depth_map):
-        self._maybe_grow()
+        self._maybe_grow(frame_id)
         self._flush_ready()
         if self._fused_ok():
+            trace.count("frames.fused")
             # one call late: the upload overlaps the previous frame's work
             self._upQ.append((self._dispatch_rgbd_upload,
-                              (frame_id, ts, self._upload(image, "image"),
-                               self._upload(depth_map, "depth"))))
+                              (frame_id, ts, self._upload(image, "image", frame_id),
+                               self._upload(depth_map, "depth", frame_id))))
             self._drain_upload(n_keep=1)
             return LazyTrackOutput(self, frame_id)
         self._flush_all()
@@ -1082,22 +1107,24 @@ class Tracker:
                                            self.device))
 
     def track_stereo_arrays(self, frame_id: int, ts: float, image_l, image_r):
-        self._maybe_grow()
+        self._maybe_grow(frame_id)
         self._flush_ready()
         if self._fused_ok():
+            trace.count("frames.fused")
             return self._dispatch_fused(_frame_step_stereo, frame_id, ts,
-                                        self._upload(image_l, "image"),
-                                        self._upload(image_r, "image"))
+                                        self._upload(image_l, "image", frame_id),
+                                        self._upload(image_r, "image", frame_id))
         self._flush_all()
         return self.track(build_frame_stereo(frame_id, ts, image_l, image_r, self.cfg,
                                              self.device))
 
     def track_mono_arrays(self, frame_id: int, ts: float, image):
-        self._maybe_grow()
+        self._maybe_grow(frame_id)
         self._flush_ready()
         if self._fused_ok():
+            trace.count("frames.fused")
             return self._dispatch_fused(_frame_step_mono, frame_id, ts,
-                                        self._upload(image, "image"))
+                                        self._upload(image, "image", frame_id))
         self._flush_all()
         return self.track(build_frame_mono(frame_id, ts, image, self.cfg, self.device))
 
@@ -1106,7 +1133,9 @@ class Tracker:
         localization-only mode, and every frame of the staged ladder
         (`cfg.fused_tracking` False)."""
         self._flush_all()
-        out = self._track_host(frame)
+        trace.count("frames.host_path")
+        with trace.span("host_path", frame.frame_id):
+            out = self._track_host(frame)
         if out.Tcw is not None:
             Tcr = np.eye(4) if out.relative_to_kf is None else out.relative_to_kf
             self.trajectory.append((frame.timestamp, Tcr, out.ref_kf, out.state))
@@ -1169,7 +1198,8 @@ class Tracker:
             # Relocalization (Tracking.cc:436-448 -> Relocalization); in
             # localization mode it is tried on every untracked frame and
             # preferred over odometry (Tracking.cc:352-390)
-            ok, Tcw_r, assoc_r = self.reloc_fn(frame)
+            with trace.span("reloc"):
+                ok, Tcw_r, assoc_r = self.reloc_fn(frame)
             if ok:
                 frame.Tcw, frame.assoc = Tcw_r, assoc_r
                 self.velocity = None
@@ -1228,6 +1258,7 @@ class Tracker:
         mode, and a frame the fused chain reported weak. Host reads: the
         match count and the inlier count at each rung taken. Returns
         (tracked, n_inliers)."""
+        trace.count("frames.staged_retry")
         cfg = self.cfg
         ok = False
         T_last = self._last_Tcw_tensor()
@@ -1316,17 +1347,19 @@ class Tracker:
     def _create_keyframe(self, frame: Frame):
         """Tracking::CreateNewKeyFrame on the host path."""
         slot = self.n_kfs
-        self.map, n_created, kf_obs_row = _create_kf_core(
-            self.map, slot, self.n_pts_dev, frame.frame_id, frame.timestamp, frame.Tcw,
-            frame.feats, frame.uright, frame.depth, frame.assoc, self.ref_kf, self.cfg)
+        with trace.span("kf_create"):
+            self.map, n_created, kf_obs_row = _create_kf_core(
+                self.map, slot, self.n_pts_dev, frame.frame_id, frame.timestamp, frame.Tcw,
+                frame.feats, frame.uright, frame.depth, frame.assoc, self.ref_kf, self.cfg)
         self.n_kfs += 1
         self.n_pts_dev = self.n_pts_dev + n_created
         frame.assoc = kf_obs_row
         self.ref_kf = slot
         self.last_kf_frame_id = frame.frame_id
         self.kf_ts_host[slot] = frame.timestamp
-        for cb in self.new_kf_callbacks:
-            cb(slot)
+        with trace.span("kf_callbacks"):
+            for cb in self.new_kf_callbacks:
+                cb(slot)
 
     def _resolve_entry(self, fid: int, ts: float, s: np.ndarray):
         """Host state update from one frame's packed out vector, when its
@@ -1357,8 +1390,9 @@ class Tracker:
             self.kf_ts_host[kf_slot] = ts
             self.last_kf_frame_id = fid
             self.n_pts_dev = self.ds.n_pts   # the newest dispatched frame's cursor
-            for cb in self.new_kf_callbacks:
-                cb(kf_slot)
+            with trace.span("kf_callbacks", fid):
+                for cb in self.new_kf_callbacks:
+                    cb(kf_slot)
             if not self.cfg.chunked_mapper:
                 # the monolithic mapper moved the point cursor and the
                 # observations (tracking.py:1431-1440)
@@ -1406,7 +1440,7 @@ class Tracker:
         self.n_pts_dev = n_pts
 
     # -- capacity tiers ------------------------------------------------------
-    def _maybe_grow(self):
+    def _maybe_grow(self, frame_id: int = -1):
         """Grow the map to the next capacity tier when ~85% full, read from
         the host mirrors (no device read in the frame loop): the keyframe
         count at 85% of max_keyframes, or the point-cursor mirror at 85% of
@@ -1429,37 +1463,38 @@ class Tracker:
         cursor_full = self.n_pts_host >= int(pmax * 0.85)
         if not (need_k or cursor_full):
             return
-        dev_compacts = cfg.chunked_mapper and cfg.fused_tracking and self.ds is not None
-        if cursor_full and not need_k and not dev_compacts:
-            # the cursor filled with dead slots (triangulation burns ~8 per
-            # survivor): with the live points under half the arena, compact
-            # at the same tier (tracking.py:1605-1619)
-            self._flush_all()
-            if int(torch.sum(self.map.pt_valid)) < int(pmax * 0.5):
+        with trace.span("grow", frame_id):
+            dev_compacts = cfg.chunked_mapper and cfg.fused_tracking and self.ds is not None
+            if cursor_full and not need_k and not dev_compacts:
+                # the cursor filled with dead slots (triangulation burns ~8 per
+                # survivor): with the live points under half the arena, compact
+                # at the same tier (tracking.py:1605-1619)
+                self._flush_all()
+                if int(torch.sum(self.map.pt_valid)) < int(pmax * 0.5):
+                    self._compact_points()
+                    return
+            need_p = cursor_full and pmax < cfg.max_points_cap
+            if not (need_k or need_p):
+                # the point cursor is full at the top tier. Compaction helps
+                # only with dead slots to reclaim, and each attempt drains the
+                # mapper: >= 15% reclaimable, >= 4 keyframes since the last try
+                if self.n_kfs < self._next_compact_kfs:
+                    return
+                self._next_compact_kfs = self.n_kfs + 4
+                self._flush_all()
+                n_live = int(torch.sum(self.map.pt_valid))
+                if n_live >= int(pmax * 0.85):
+                    if not self._top_tier_warned:
+                        print(f"[tracker] WARNING: point arena at top tier with {n_live}/{pmax} "
+                              f"live; point creation degrades until culling frees slots")
+                        self._top_tier_warned = True
+                    return
+                print(f"[tracker] point arena at top tier (cursor {self.n_pts_host}/{pmax}); "
+                      f"compacting")
                 self._compact_points()
                 return
-        need_p = cursor_full and pmax < cfg.max_points_cap
-        if not (need_k or need_p):
-            # the point cursor is full at the top tier. Compaction helps
-            # only with dead slots to reclaim, and each attempt drains the
-            # mapper: >= 15% reclaimable, >= 4 keyframes since the last try
-            if self.n_kfs < self._next_compact_kfs:
-                return
-            self._next_compact_kfs = self.n_kfs + 4
-            self._flush_all()
-            n_live = int(torch.sum(self.map.pt_valid))
-            if n_live >= int(pmax * 0.85):
-                if not self._top_tier_warned:
-                    print(f"[tracker] WARNING: point arena at top tier with {n_live}/{pmax} "
-                          f"live; point creation degrades until culling frees slots")
-                    self._top_tier_warned = True
-                return
-            print(f"[tracker] point arena at top tier (cursor {self.n_pts_host}/{pmax}); "
-                  f"compacting")
-            self._compact_points()
-            return
-        self._grow_to(min(kmax * 4, cfg.max_keyframes_cap) if need_k else kmax,
-                      min(pmax * 4, cfg.max_points_cap) if need_p else pmax)
+            self._grow_to(min(kmax * 4, cfg.max_keyframes_cap) if need_k else kmax,
+                          min(pmax * 4, cfg.max_points_cap) if need_p else pmax)
 
     def _grow_to(self, new_k: int, new_p: int):
         """Move the map and cfg to the tier (new_k keyframes, new_p points)
@@ -1482,7 +1517,8 @@ class Tracker:
         point id held outside the map. Call only with the mapper drained."""
         for cb in self.compact_callbacks:
             cb()   # e.g. abort a background GBA whose snapshot holds old ids
-        m2, n_live, remap = ms.compact_points(self.map)
+        with trace.span("compact"):
+            m2, n_live, remap = ms.compact_points(self.map)
         self.map = m2
         self.compaction_epoch += 1
         n_live = int(n_live)
@@ -1521,6 +1557,7 @@ class Tracker:
         self.kf_ts_host[0] = frame.timestamp
         self.last_Tcw = np.eye(4, dtype=np.float32)
         self.last_frame = frame
-        for cb in self.new_kf_callbacks:
-            cb(0)
+        with trace.span("kf_callbacks"):
+            for cb in self.new_kf_callbacks:
+                cb(0)
         return self.n_pts > 0

@@ -18,6 +18,7 @@ import torch
 
 from orb_slam2_comment_tpu_torch import _build
 from orb_slam2_comment_tpu_torch.ops.optim import BAProblem, LBASystem, build_system_plain
+from orb_slam2_comment_tpu_torch.utils import trace
 
 __all__ = ["LBAPrep", "prep_problem", "build_system", "build_system_plain"]
 
@@ -104,7 +105,7 @@ def build_system(prep: LBAPrep, cam_T, pts, obs_ok, robust: bool, K, bf) -> LBAS
         Nc, Np, prep.N_per, F, CHUNKS, int(bool(robust)), fx, fy, cx, cy, float(bf),
         _build.stream_of(cam_T))
     _build.check(err, "slam_lba_build")
-    build_system.launches += 1
+    trace.count("launch.K4")
     o_hcc = n_e + n_pp
     out = LBASystem(
         Hcc=sys_[o_hcc:o_hcc + F * 36].view(F, 6, 6),
@@ -120,7 +121,6 @@ def build_system(prep: LBAPrep, cam_T, pts, obs_ok, robust: bool, K, bf) -> LBAS
     return out
 
 
-build_system.launches = 0
 # None, or a list to which each launch appends (cam_T, pts, obs_ok, robust,
 # system), so that a solve's every linearization can be held to the plain
 # version afterwards (chip_smoke.py)

@@ -12,8 +12,7 @@ With a leading batch axis (Tcw0 [B,4,4], per-edge inputs [B,N,...]) one
 launch solves B independent poses, one block each (relocalization's
 candidates); a per-edge input shared by every pose may be broadcast
 (`expand`, batch stride 0). The plain version then loops over B. Single
-launches count in `pose_optimize_lm.launches`, batched ones in
-`.batched_launches`.
+launches count in the tracer's `launch.K3`, batched ones in `launch.K3b`.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ import torch
 from orb_slam2_comment_tpu_torch import _build
 from orb_slam2_comment_tpu_torch import constants as C
 from orb_slam2_comment_tpu_torch.ops.optim import PoseOptResult, pose_optimize_plain
+from orb_slam2_comment_tpu_torch.utils import trace
 
 __all__ = ["pose_optimize_lm", "pose_optimize_plain"]
 
@@ -65,9 +65,9 @@ def pose_optimize_lm(Tcw0, Xw, obs, octave, is_stereo, valid, inv_sigma2_levels,
         int(iters), int(C.POSE_OPT_ROBUST_ROUNDS), _build.stream_of(Xw))
     _build.check(err, "slam_pose_lm")
     if batched:
-        pose_optimize_lm.batched_launches += 1
+        trace.count("launch.K3b")
         return PoseOptResult(Tcw=Tcw, inliers=inliers.view(torch.bool), n_inliers=n_inliers)
-    pose_optimize_lm.launches += 1
+    trace.count("launch.K3")
     return PoseOptResult(Tcw=Tcw[0], inliers=inliers[0].view(torch.bool),
                          n_inliers=n_inliers[0])
 
@@ -91,7 +91,3 @@ def launch_layout(Tcw0, Xw, obs, octave, is_stereo, valid, inv_sigma2_levels):
         (octave, "octave", torch.int32, (B, n)), (is_stereo, "is_stereo", torch.bool, (B, n)),
         (valid, "valid", torch.bool, (B, n)))]
     return B, n, strides
-
-
-pose_optimize_lm.launches = 0
-pose_optimize_lm.batched_launches = 0

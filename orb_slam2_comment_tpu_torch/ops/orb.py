@@ -26,6 +26,7 @@ import torch
 from orb_slam2_comment_tpu_torch import _build
 from orb_slam2_comment_tpu_torch import constants as C
 from orb_slam2_comment_tpu_torch.ops.scatter import top_k
+from orb_slam2_comment_tpu_torch.utils import trace
 from orb_slam2_comment_tpu_torch.utils.config import ORBConfig
 
 __all__ = ["ORBConfig", "FrameFeatures", "extract", "fast_nms_levels", "gather_patches"]
@@ -216,7 +217,7 @@ def fast_nms_levels(stack: torch.Tensor, sizes) -> list:
     _build.check(_build.library().slam_fast_nms(_build.ptr(stack), _build.ptr(out),
                                                 table.ctypes.data, _build.stream_of(stack)),
                  "slam_fast_nms")
-    fast_nms_levels.launches += 1
+    trace.count("launch.K1")
     return k1_views(out, sizes, table)
 
 
@@ -226,8 +227,6 @@ def k1_views(out: torch.Tensor, sizes, table: np.ndarray) -> list:
     off = table[K1_HEAD + 3 * L:K1_HEAD + 4 * L].tolist()
     return [out.as_strided((h, w), (w, 1), o) for (h, w), o in zip(sizes, off)]
 
-
-fast_nms_levels.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -266,11 +265,8 @@ def gather_patches(padded: torch.Tensor, lyx: torch.Tensor) -> torch.Tensor:
                                          _build.ptr(out), n, L, Hp, Wp,
                                          _build.stream_of(padded)),
                  "slam_gather_patches")
-    gather_patches.launches += 1
+    trace.count("launch.K2")
     return out
-
-
-gather_patches.launches = 0
 
 
 # ---------------------------------------------------------------------------
