@@ -2,8 +2,11 @@
 tests/test_examples.py's 8-frame TUM RGB-D and 6-frame KITTI stereo
 fixtures (written by tests/test_torch_drivers.py's helpers): the same
 trajectories, warm prestaged replays, and the card as the default
-device."""
+device. The port's driver runs once per sequence, in the module
+fixture `port_runs`; the tests read that run's files."""
 
+import contextlib
+import io
 import sys
 from pathlib import Path
 
@@ -16,6 +19,7 @@ from test_torch_drivers import datasets  # noqa: F401  (the on-disk fixtures)
 torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parent.parent
+CASES = ("rgbd_tum", "stereo_kitti")
 
 
 def _read_rows(path):
@@ -23,35 +27,62 @@ def _read_rows(path):
                        for line in Path(path).read_text().strip().splitlines()])
 
 
-@pytest.mark.parametrize("case", ["rgbd_tum", "stereo_kitti"])
-def test_run_dataset_like_jax(case, datasets, tmp_path, monkeypatch):
-    """The run_dataset twin with device="cpu" beside the JAX driver on the
-    same files: the same number of rows in the TUM and KITTI files, and
-    every camera centre within 1 mm of JAX's (test_torch_system.py's
-    per-frame tolerance)."""
-    from orb_slam2_comment_tpu_torch.examples import run_dataset as trd
-
-    sys.path.insert(0, str(REPO))
-    from examples import run_dataset as jrd
-
+def _driver_args(case, datasets):
+    """(positional args, keyword args) of run_dataset.run for a case."""
     root = datasets["tum" if case == "rgbd_tum" else "kitti"]
     args = (("rgbd", "tum_rgbd") if case == "rgbd_tum" else ("stereo", "kitti")) + (str(root),)
     kw = dict(settings=str(root / "settings.yaml"), vocabulary=None,
               associations=str(root / "associations.txt") if case == "rgbd_tum" else None)
+    return args, kw
+
+
+@pytest.fixture(scope="module")
+def port_runs(datasets, tmp_path_factory):
+    """The port's driver once on each sequence with device="cpu", writing
+    torch_*: {case: (its output directory, the System it returns, the
+    frame ids whose lazy output was read, what it printed)}."""
+    from orb_slam2_comment_tpu_torch.examples import run_dataset as trd
+    from orb_slam2_comment_tpu_torch.models import tracking
+
+    get = tracking.LazyTrackOutput._get
+    out = {}
+    for case in CASES:
+        d = tmp_path_factory.mktemp(f"port_{case}")
+        args, kw = _driver_args(case, datasets)
+        reads, printed = [], io.StringIO()
+        with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(printed):
+            mp.setattr(tracking.LazyTrackOutput, "_get",
+                       lambda self, reads=reads: reads.append(self._fid) or get(self))
+            mp.chdir(d)
+            system = trd.run(*args, out_prefix="torch", device="cpu", **kw)
+        out[case] = (d, system, reads, printed.getvalue())
+    return out
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_run_dataset_like_jax(case, datasets, port_runs, tmp_path, monkeypatch):
+    """The run_dataset twin with device="cpu" beside the JAX driver on the
+    same files: the same number of rows in the TUM and KITTI files, and
+    every camera centre within 1 mm of JAX's (test_torch_system.py's
+    per-frame tolerance)."""
+    sys.path.insert(0, str(REPO))
+    from examples import run_dataset as jrd
+
+    args, kw = _driver_args(case, datasets)
     monkeypatch.chdir(tmp_path)
     jrd.run(*args, out_prefix="jax", **kw)
-    system = trd.run(*args, out_prefix="torch", device="cpu", **kw)
+    d, system, _, _ = port_runs[case]
     assert system.tracker.map.kf_pose.device.type == "cpu"
     n = 8 if case == "rgbd_tum" else 6
     for suffix, cols in (("_tum.txt", slice(1, 4)), ("_kitti.txt", [3, 7, 11])):
-        a, b = _read_rows(f"torch{suffix}"), _read_rows(f"jax{suffix}")
+        a, b = _read_rows(d / f"torch{suffix}"), _read_rows(f"jax{suffix}")
         assert a.shape == b.shape and a.shape[0] == n
         assert np.abs(a[:, cols] - b[:, cols]).max() < 1e-3
-    a, b = _read_rows("torch_kf_tum.txt"), _read_rows("jax_kf_tum.txt")
+    a, b = _read_rows(d / "torch_kf_tum.txt"), _read_rows("jax_kf_tum.txt")
     assert a.shape == b.shape
 
 
-def test_run_dataset_warm_runs_prestaged(datasets, tmp_path, monkeypatch):
+def test_run_dataset_warm_runs_prestaged(datasets, port_runs, tmp_path, monkeypatch):
     """runs=2 with prestage (frames decoded and on the device before the
     timed loop): the second run, in a fresh System, writes the same TUM
     file as one cold run, and `timings` gets that run's per-frame
@@ -62,37 +93,27 @@ def test_run_dataset_warm_runs_prestaged(datasets, tmp_path, monkeypatch):
     kw = dict(settings=str(root / "settings.yaml"), associations=str(root / "associations.txt"),
               device="cpu")
     monkeypatch.chdir(tmp_path)
-    trd.run("rgbd", "tum_rgbd", str(root), out_prefix="cold", **kw)
     times = []
     trd.run("rgbd", "tum_rgbd", str(root), out_prefix="warm", runs=2, prestage=True,
             timings=times, **kw)
-    assert (tmp_path / "cold_tum.txt").read_text() == (tmp_path / "warm_tum.txt").read_text()
+    cold = port_runs["rgbd_tum"][0] / "torch_tum.txt"
+    assert cold.read_text() == (tmp_path / "warm_tum.txt").read_text()
     assert len(times) == 8 and all(t > 0 for t in times)
 
 
-def test_run_dataset_counts_tracked_frames_from_the_trajectory(datasets, tmp_path,
-                                                               monkeypatch, capsys):
+def test_run_dataset_counts_tracked_frames_from_the_trajectory(port_runs):
     """The driver reads a frame's output only where it prints (every 20th
     frame; the first is the initializing host-path frame) and counts the
     tracked frames from the trajectory after shutdown, as the JAX driver
     leaves the pipeline unread: no lazy output is read on the 8-frame TUM
     fixture, and the count is 8 of 8, the trajectory's OK rows."""
-    from orb_slam2_comment_tpu_torch.examples import run_dataset as trd
     from orb_slam2_comment_tpu_torch.models import tracking
 
-    reads = []
-    get = tracking.LazyTrackOutput._get
-    monkeypatch.setattr(tracking.LazyTrackOutput, "_get",
-                        lambda self: reads.append(self._fid) or get(self))
-    root = datasets["tum"]
-    monkeypatch.chdir(tmp_path)
-    system = trd.run("rgbd", "tum_rgbd", str(root), settings=str(root / "settings.yaml"),
-                     associations=str(root / "associations.txt"), out_prefix="count",
-                     device="cpu")
+    _, system, reads, printed = port_runs["rgbd_tum"]
     assert reads == []
     n_ok = sum(1 for r in system.trajectory if r[3] == tracking.OK)
     assert n_ok == 8
-    assert "tracked frames: 8/8" in capsys.readouterr().out
+    assert "tracked frames: 8/8" in printed
 
 
 def test_drivers_need_cuda_unless_told_cpu(datasets, tmp_path, monkeypatch):
